@@ -1,0 +1,485 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch / CUDA port (``spef_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the repo root on a machine with one CUDA card and the CUDA toolkit
+(``nvcc``).  It imports nothing of JAX and nothing of ``spef_tpu``.  Phases,
+each printed on its own lines; any failure exits nonzero:
+
+  1. the card (``nvidia-smi`` name and power limit) and the kernel build:
+     every ``spef_tpu_torch/csrc/*.cu`` compiled by ``nvcc`` for ``sm_90a``,
+     one process per source, all at once;
+  2. every K1 variant and K2 mode against its plain PyTorch version at
+     flagship layer shapes (mismatches must be 0);
+  3. the float flagship (``exp_dspeed_synth``, MobileNetV2 + URSONet,
+     240x384) served through ``spef_tpu_torch.apps.serve``: requests of
+     256, 37 (padded) and 1 frames; the host-to-device copy and the predict
+     function timed apart; checked against the float32 model on the CPU;
+  4. the boundary-recipe int8 flagship (the committed asset graph) served on
+     the kernels: the launch counters are set to 0 before it is driven and
+     must read 34 K1 and 17 K2 launches a forward after it; the copy, the
+     predict function and the int8 forward alone timed apart; the kernels'
+     logits must equal the plain backend's on the card, and stay within
+     0.3 of the plain backend on the CPU;
+  5. each kernel at the main path's own inputs (batch 256): mismatches,
+     kernel / plain / library time (CUDA events) and its bound, printed as
+     one ``{"kernels": [...]}`` JSON line;
+  6. the last line: ``{"ok": true, "device": {...}}``.
+
+It exits nonzero, printing no result, where ``torch.cuda.is_available()`` is
+false or the package is missing.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+FLAGSHIP = os.path.join(REPO, "experiments", "train_synth", "exp_dspeed_synth")
+ASSET = os.path.join(REPO, "spef_tpu_torch", "assets", "flagship_boundary_int8_graph.pkl")
+BATCH = 256
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+
+KERNELS = {
+    "int8_matmul_requant": {
+        "source": "spef_tpu_torch/csrc/int8_matmul_requant.cu",
+        "replaces": "spef_tpu/ops/pallas/int8_ops.py:117",
+    },
+    "int8_depthwise3x3": {
+        "source": "spef_tpu_torch/csrc/int8_depthwise3x3.cu",
+        "replaces": "spef_tpu/ops/pallas/int8_ops.py:252",
+    },
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean ms per call from CUDA events around ``reps`` back-to-back calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def diff(a, b):
+    """(mismatching elements, max |a - b|) of two outputs of one kernel."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"shape/dtype {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} {b.dtype}")
+    d = (a.float() - b.float()).abs()
+    bits = a.view(torch.uint8) != b.view(torch.uint8) if a.dtype == torch.int8 else a != b
+    return int(bits.sum()), float(d.max()) if d.numel() else 0.0
+
+
+# ---------------------------------------------------------------------------
+# Bounds: the least time the card could take for one call's work.
+# ---------------------------------------------------------------------------
+
+
+def mm_bound(args, kw):
+    x, w = args[0], args[1]
+    m, k = x.shape
+    n = w.shape[1]
+    out_bytes = 4 if kw.get("out_inv_step") is None else 1
+    nbytes = m * k * x.element_size() + k * n + m * n * out_bytes + 8 * n
+    if kw.get("residual") is not None and kw.get("out_inv_step") is not None:
+        nbytes += m * n
+    ops = 2 * m * n * k
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = ops / PEAK_OPS_S["bf16" if x.dtype.is_floating_point else "int8"]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def dw_bound(args, kw):
+    x = args[0]
+    b, h, w, c = x.shape
+    s = kw.get("stride", 1)
+    ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+    out_bytes = 2 if kw.get("out_inv_step", 1.0) is None else 1
+    nbytes = x.numel() * x.element_size() + b * ho * wo * c * out_bytes + 9 * c + 8 * c
+    ops = 2 * 9 * b * ho * wo * c  # f32 multiply-adds on the CUDA cores
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S["f32"]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+# ---------------------------------------------------------------------------
+# Library yardsticks (timed here only; the port never calls them).
+# ---------------------------------------------------------------------------
+
+
+def mm_library(args, kw):
+    """bf16 ``torch.matmul`` plus the epilogue as PyTorch ops."""
+    import torch
+
+    x, w, mult, bias = args[:4]
+    xb = x.to(torch.bfloat16) if not x.dtype.is_floating_point else x
+    wb = w.to(torch.bfloat16)
+    inv = kw.get("out_inv_step")
+
+    def run():
+        y = torch.matmul(xb, wb).float() * mult + bias
+        if inv is None:
+            return y.relu_() if kw.get("relu", True) else y
+        return torch.clamp(torch.round(y * inv), kw.get("out_qmin", 0.0),
+                           kw.get("out_qmax", 127.0)).to(torch.int8)
+
+    return run
+
+
+def dw_library(args, kw):
+    """bf16 depthwise ``F.conv2d(groups=C)`` on a channels_last view."""
+    import torch
+
+    x, w = args[0], args[1]
+    c = x.shape[-1]
+    xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)  # NHWC memory = channels_last
+    wb = w.to(torch.bfloat16).permute(2, 0, 1).reshape(c, 1, 3, 3).contiguous(
+        memory_format=torch.channels_last)
+    s = kw.get("stride", 1)
+    return lambda: torch.nn.functional.conv2d(xb, wb, stride=s, padding=1, groups=c)
+
+
+# ---------------------------------------------------------------------------
+# Phases
+# ---------------------------------------------------------------------------
+
+
+def phase_card_and_build():
+    from spef_tpu_torch.ops import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    log(f"[build] nvcc {_build.nvcc_path()}: built {built} in "
+        f"{time.perf_counter() - t0:.1f} s (sm_90a, one process per source, in parallel)")
+    for name, out in _build.build_logs.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+    return card
+
+
+def phase_variants(torch, dev):
+    """Every K1 variant and K2 mode vs plain at flagship layer shapes."""
+    from spef_tpu_torch.ops.int8_ops import (
+        int8_depthwise3x3, int8_depthwise3x3_plain, int8_matmul_requant,
+        int8_matmul_requant_plain)
+
+    g = torch.Generator().manual_seed(0)
+    # block 14 expand / project at batch 256: M = 256*8*12, K/N = 160/960.
+    m, k, n = BATCH * 8 * 12, 160, 960
+    ints = torch.randint(-16, 16, (m, k), generator=g).to(torch.int8)
+    bits = torch.randint(-128, 128, (m, k), generator=g).to(torch.int8)
+    real = (torch.rand(m, n, generator=g) * 6).to(torch.bfloat16)
+    w_e = torch.randint(-8, 8, (k, n), generator=g).to(torch.int8)
+    w_p = torch.randint(-8, 8, (n, k), generator=g).to(torch.int8)
+    vec = lambda size, s: (torch.rand(size, generator=g) * s).to(dev)  # noqa: E731
+    res = torch.randint(-7, 8, (m, k), generator=g).to(torch.int8).to(dev)
+    cases = {
+        "int8_in_int8_out_relu": (ints, w_e, dict(relu=True, out_inv_step=8.0, out_qmax=15.0)),
+        "bits_in_bits_out": (bits, w_e, dict(relu=True, out_inv_step=3.0, out_qmax=255.0,
+                                             in_unsigned=True, out_bits=True)),
+        "int8_in_f32_out": (ints, w_e, dict(relu=True, out_inv_step=None)),
+        "bf16_in_int8_out": (real, w_p, dict(relu=False, out_inv_step=2.0, out_qmin=-128.0)),
+        "bf16_in_residual": (real, w_p, dict(relu=False, out_inv_step=4.0, out_qmax=7.0,
+                                             out_qmin=-8.0, res_ratio=0.75, residual=res)),
+    }
+    total = 0
+    for name, (x, w, kw) in cases.items():
+        nn_ = w.shape[1]
+        args = (x.to(dev), w.to(dev), vec(nn_, 1e-2), vec(nn_, 0.1))
+        a = int8_matmul_requant(*args, **kw)
+        b = int8_matmul_requant_plain(*args, **kw)
+        torch.cuda.synchronize()
+        mis, err = diff(a, b)
+        total += mis
+        log(f"[variants] K1 {name} M={m} K={args[0].shape[1]} N={nn_}: "
+            f"{mis} mismatches, max |kernel - plain| {err}")
+    dw_cases = {
+        # block 13 (stride 2, 576 ch at 15x24) and block 14 (stride 1, 960 ch at 8x12)
+        "int8_in_int8_out_s1": ((BATCH, 8, 12, 960), 1, "int8", dict(out_inv_step=6.0)),
+        "bits_in_bits_out_s2": ((BATCH, 15, 24, 576), 2, "bits",
+                                dict(out_inv_step=2.0, out_qmax=255.0, in_unsigned=True,
+                                     out_bits=True)),
+        "bits_in_bf16_out_s1": ((BATCH, 120, 192, 32), 1, "bits",
+                                dict(out_inv_step=None, in_unsigned=True)),
+        "f32_in_bf16_out_s2": ((BATCH, 15, 24, 576), 2, "real", dict(out_inv_step=None)),
+        "f32_in_int8_out_s1": ((BATCH, 8, 12, 960), 1, "real", dict(out_inv_step=6.0)),
+    }
+    for name, (shape, stride, src, kw) in dw_cases.items():
+        if src == "real":
+            x = torch.rand(shape, generator=g) * 4
+        else:
+            x = torch.randint(-128 if src == "bits" else -64, 128 if src == "bits" else 64,
+                              shape, generator=g).to(torch.int8)
+        c = shape[-1]
+        w = torch.randint(-8, 8, (3, 3, c), generator=g).to(torch.int8)
+        args = (x.to(dev), w.to(dev), vec(c, 1e-2), vec(c, 0.05))
+        kw = dict(kw, stride=stride, in_step=1.0 if src == "real" else 0.05)
+        a = int8_depthwise3x3(*args, **kw)
+        b = int8_depthwise3x3_plain(*args, **kw)
+        torch.cuda.synchronize()
+        mis, err = diff(a, b)
+        total += mis
+        log(f"[variants] K2 {name} {tuple(shape)}: {mis} mismatches, "
+            f"max |kernel - plain| {err}")
+    if total:
+        raise AssertionError(f"{total} kernel/plain mismatches across the variants")
+
+
+def _serve(torch, args_list):
+    from spef_tpu_torch.apps import serve
+
+    args = serve.parse_args(args_list)
+    server, img_size = serve.build_server(args)
+    return server, img_size
+
+
+def _check_pose(np, pose, n):
+    assert pose["ori"].shape == (n, 4) and pose["pos"].shape == (n, 3), pose["ori"].shape
+    assert pose["ori_soft"].shape == (n, 1232) and pose["pos_soft"].shape == (n, 1000)
+    for v in pose.values():
+        assert np.isfinite(v).all()
+    assert np.allclose(np.linalg.norm(pose["ori"], axis=-1), 1.0, atol=1e-4)
+
+
+def _drive(np, server, frames, label):
+    """Requests of 256, 37 (padded) and 1 frames; returns the 256 pose."""
+    for n in (BATCH, 37, 1):
+        pose, ms = server.predict(frames[:n])
+        _check_pose(np, pose, n)
+        log(f"[{label}] request of {n}: ori {pose['ori'].shape} pos {pose['pos'].shape}, "
+            f"{ms:.2f} ms, {n / ms * 1e3:.1f} frames/s")
+        if n == BATCH:
+            out = pose
+    t0 = time.perf_counter()
+    reps = 4
+    for _ in range(reps):
+        server.predict(frames)
+    fps = reps * BATCH / (time.perf_counter() - t0)
+    log(f"[{label}] sustained {fps:.1f} frames/s at batch {BATCH} "
+        f"(p50 {server.stats()['p50_ms']:.2f} ms/request)")
+    return out
+
+
+def _request_parts(torch, server, frames, label):
+    """CUDA-event times of a batch-256 request's parts: the host-to-device
+    copy of the frames and the predict function on frames already there."""
+    x = torch.from_numpy(frames).to(server.device)
+    h2d = time_ms(lambda: torch.from_numpy(frames).to(server.device), reps=3)
+    predict = time_ms(lambda: server.predict_fn(x), reps=3)
+    log(f"[{label}] batch {BATCH} on the card: host-to-device copy {h2d:.3f} ms, "
+        f"predict (forward + softmax + decode) {predict:.3f} ms")
+    return x
+
+
+def phase_float(torch, np, dev, frames):
+    from spef_tpu_torch.engine import build_predict_fn
+
+    server, _ = _serve(torch, ["--experiment", FLAGSHIP, "--batch", str(BATCH)])
+    log(f"[float] warmup {server.warmup():.2f} s")
+    _drive(np, server, frames, "float")
+    _request_parts(torch, server, frames, "float")
+
+    # Reference on a small input: the float32 model on the card (TF32 off)
+    # and on the CPU must agree; the served bf16 model must stay close.
+    from spef_tpu_torch.codec.facade import SPEUtils
+    from spef_tpu_torch.data.camera import SPEED_CAMERA
+    from spef_tpu_torch.models.wrapper import import_model
+
+    small = torch.from_numpy(frames[:2])
+    params = os.path.join(FLAGSHIP, "model", "parameters.msgpack")
+    outs = {}
+    for where in ("cuda", "cpu"):
+        model = import_model(params_path=params, ori_mode="classification", n_ori_bins=1232,
+                             pos_mode="classification", n_pos_bins=1000, device=where,
+                             compute_dtype=torch.float32)
+        utils = SPEUtils.create(SPEED_CAMERA, ori_mode="classification",
+                                pos_mode="classification", device=where)
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            outs[where] = {k: v.cpu() for k, v in
+                           build_predict_fn(model, utils)(small.to(where)).items()}
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+    served, _ = server.predict(frames[:2])
+    d_soft = float((outs["cuda"]["ori_soft"] - outs["cpu"]["ori_soft"]).abs().max())
+    d_pos = float((outs["cuda"]["pos"] - outs["cpu"]["pos"]).abs().max())
+    dot = (torch.from_numpy(served["ori"]) * outs["cpu"]["ori"]).sum(-1).abs().clamp(max=1)
+    ang = float(2 * torch.rad2deg(torch.arccos(dot)).max())
+    d_pos_bf16 = float((torch.from_numpy(served["pos"]) - outs["cpu"]["pos"]).abs().max())
+    log(f"[float] f32 card vs f32 CPU: max |d ori_soft| {d_soft:.3e}, max |d pos| "
+        f"{d_pos:.3e} m; served bf16 vs f32 CPU: ori {ang:.3f} deg, pos {d_pos_bf16:.4f} m")
+    assert d_soft < 1e-4 and d_pos < 1e-3, (d_soft, d_pos)
+    assert ang < 10.0 and d_pos_bf16 < 0.5, (ang, d_pos_bf16)
+
+
+def phase_int8(torch, np, dev, frames):
+    from spef_tpu_torch.ops.int8_ops import int8_depthwise3x3, int8_matmul_requant
+    from spef_tpu_torch.quant.int8_cuda import build_cuda_forward, load_int8_graph
+
+    server, _ = _serve(torch, ["--experiment", FLAGSHIP, "--int8-graph", ASSET,
+                               "--int8-backend", "cuda", "--batch", str(BATCH)])
+    # The main path: counts to 0, drive (warmup + requests), read the counts.
+    int8_matmul_requant.launches = 0
+    int8_depthwise3x3.launches = 0
+    log(f"[int8] warmup {server.warmup():.2f} s")
+    pose = _drive(np, server, frames, "int8")
+    forwards = 1 + 3 + 4  # warmup, the three requests, the sustained run
+    launches = {"int8_matmul_requant": int8_matmul_requant.launches,
+                "int8_depthwise3x3": int8_depthwise3x3.launches}
+    log(f"[int8] launches over {forwards} forwards: {launches}")
+    assert launches == {"int8_matmul_requant": 34 * forwards,
+                        "int8_depthwise3x3": 17 * forwards}, launches
+
+    x = _request_parts(torch, server, frames, "int8")
+    graph = load_int8_graph(ASSET)
+    fwd_cuda = build_cuda_forward(graph, backend="cuda", device=dev)
+    assert fwd_cuda.launches_per_call == {"int8_matmul_requant": 34, "int8_depthwise3x3": 17}
+    log(f"[int8] batch {BATCH} on the card: int8 forward alone "
+        f"{time_ms(lambda: fwd_cuda(x), reps=3):.3f} ms")
+    got = fwd_cuda(x)
+    want = build_cuda_forward(graph, backend="plain", device=dev)(x)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("ori", "pos"), got, want):
+        mis, err = diff(a, b)
+        log(f"[int8] cuda vs plain on the card, {name} logits {tuple(a.shape)}: "
+            f"{mis} mismatches, max |d| {err}")
+        assert mis == 0, name
+    assert np.array_equal(pose["ori_soft"], torch.softmax(got[0], -1).cpu().numpy())
+    cpu = build_cuda_forward(graph, backend="plain", device="cpu")(torch.from_numpy(frames[:2]))
+    d = max(float((a[:2].cpu() - b).abs().max()) for a, b in zip(got, cpu))
+    log(f"[int8] card vs plain on the CPU (2 frames): max |d logit| {d:.4g}")
+    assert d < 0.3, d
+    return launches
+
+
+def phase_kernels(torch, dev, frames, launches):
+    """Each kernel at the main path's own inputs (one batch-256 forward)."""
+    import spef_tpu_torch.quant.int8_cuda as int8_cuda
+    from spef_tpu_torch.ops import int8_ops
+    from spef_tpu_torch.quant.int8_cuda import build_cuda_forward, load_int8_graph
+
+    calls = {name: [] for name in KERNELS}
+
+    def recorder(name):
+        fn = getattr(int8_ops, name)
+
+        def rec(*args, **kw):
+            calls[name].append((args, kw))
+            return fn(*args, **kw)
+        return rec
+
+    saved = {name: getattr(int8_cuda, name) for name in KERNELS}
+    try:
+        for name in KERNELS:
+            setattr(int8_cuda, name, recorder(name))
+        fwd = build_cuda_forward(load_int8_graph(ASSET), backend="cuda", device=dev)
+    finally:
+        for name, fn in saved.items():
+            setattr(int8_cuda, name, fn)
+    fwd(torch.from_numpy(frames).to(dev))
+    torch.cuda.synchronize()
+
+    rows = []
+    for name, recs in calls.items():
+        kernel = getattr(int8_ops, name)
+        plain = getattr(int8_ops, name + "_plain")
+        bound_fn = mm_bound if name == "int8_matmul_requant" else dw_bound
+        lib_fn = mm_library if name == "int8_matmul_requant" else dw_library
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+               "bytes_ms": 0.0, "ops_ms": 0.0}
+        mismatches, max_err = 0, 0.0
+        for i, (args, kw) in enumerate(recs):
+            a = kernel(*args, **kw)
+            b = plain(*args, **kw)
+            torch.cuda.synchronize()
+            mis, err = diff(a, b)
+            mismatches, max_err = mismatches + mis, max(max_err, err)
+            del a, b
+            k_ms = time_ms(lambda: kernel(*args, **kw), reps=10)
+            p_ms = time_ms(lambda: plain(*args, **kw), reps=2)
+            l_ms = time_ms(lib_fn(args, kw), reps=10)
+            b_ms, by = bound_fn(args, kw)
+            tot["ms"] += k_ms
+            tot["plain_ms"] += p_ms
+            tot["library_ms"] += l_ms
+            tot["bound_ms"] += b_ms
+            tot["bytes_ms" if by == "bytes" else "ops_ms"] += b_ms
+            log(f"[kernels] {name} call {i}: in {tuple(args[0].shape)} {args[0].dtype}, "
+                f"{mis} mismatches, kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+                f"library {l_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+        log(f"[kernels] {name}: {len(recs)} calls a forward, {mismatches} mismatches, "
+            f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, library "
+            f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms a batch-{BATCH} "
+            f"forward ({tot['ms'] / tot['bound_ms']:.1f}x the bound)")
+        if mismatches:
+            raise AssertionError(f"{name}: {mismatches} kernel/plain mismatches")
+        rows.append({
+            "name": name, "route": "cuda", **KERNELS[name],
+            "launches": launches[name], "max_abs_err": max_err,
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
+            "library_ms": tot["library_ms"], "mismatches": mismatches,
+            "calls_per_forward": len(recs),
+        })
+    return rows
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 1
+    import numpy as np
+
+    import spef_tpu_torch  # noqa: F401 - fails here when run outside the repo
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    card = phase_card_and_build()
+    log(f"[card] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    phase_variants(torch, dev)
+    frames = np.random.RandomState(0).randint(0, 256, (BATCH, 240, 384, 3), np.uint8)
+    phase_float(torch, np, dev, frames)
+    launches = phase_int8(torch, np, dev, frames)
+    rows = phase_kernels(torch, dev, frames, launches)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

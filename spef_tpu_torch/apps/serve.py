@@ -1,0 +1,119 @@
+"""Deployment CLI — load an experiment and serve pose inference on one GPU.
+
+Counterpart of ``spef_tpu.apps.serve``: loads a trained experiment (float
+checkpoint, optionally with a converted ``int8_graph.pkl``), builds the
+serving program on one device and runs a throughput / latency self-test.
+
+Usage:
+    python -m spef_tpu_torch.apps.serve --experiment experiments/train_synth/exp_dspeed_synth \\
+        [--int8-graph spef_tpu_torch/assets/flagship_boundary_int8_graph.pkl] \\
+        [--int8-backend cuda|plain] [--batch 256] [--selftest-frames 2048] [--device cuda]
+
+``--frames-dir``, the native frame loader, crop-refine and ``--artifact``
+come in later slices (ROADMAP §A: data, keypoints family, deploy and serve).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["build_server", "main", "parse_args"]
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--experiment", required=True)
+    parser.add_argument("--int8-graph", default=None, help="int8_graph.pkl (numpy leaves)")
+    parser.add_argument("--int8-backend", default="cuda", choices=["cuda", "plain"])
+    parser.add_argument("--batch", type=int, default=256)
+    parser.add_argument("--selftest-frames", type=int, default=2048)
+    parser.add_argument("--device", default="cuda")
+    return parser.parse_args(argv)
+
+
+def build_server(args: argparse.Namespace):
+    """(PoseServer, img_size) for the experiment named by ``args``."""
+    from spef_tpu_torch.codec.facade import SPEUtils
+    from spef_tpu_torch.config.train_config import load_config
+    from spef_tpu_torch.data.camera import SPEED_CAMERA, load_camera
+    from spef_tpu_torch.engine import build_predict_fn
+    from spef_tpu_torch.models.wrapper import import_model
+    from spef_tpu_torch.serving import PoseServer
+
+    if os.path.isfile(os.path.join(args.experiment, "model", "bit_width.json")):
+        raise NotImplementedError("QAT checkpoints (bit_width.json) need the quantized "
+                                  "models of ROADMAP §A, int8 graph front end")
+    cfg = load_config(os.path.join(args.experiment, "config.yaml"))
+    camera = load_camera(cfg.DATA.PATH) if os.path.exists(cfg.DATA.PATH) else SPEED_CAMERA
+    spe_utils = SPEUtils.create(
+        camera,
+        ori_mode=cfg.MODEL.HEAD.ORI,
+        n_ori_bins_per_dim=cfg.MODEL.HEAD.N_ORI_BINS_PER_DIM,
+        ori_smooth_factor=cfg.DATA.ORI_SMOOTH_FACTOR,
+        ori_delete_unused_bins=cfg.MODEL.HEAD.ORI_DELETE_UNUSED_BINS,
+        pos_mode=cfg.MODEL.HEAD.POS,
+        n_pos_bins_per_dim=cfg.MODEL.HEAD.N_POS_BINS_PER_DIM,
+        pos_smooth_factor=cfg.DATA.POS_SMOOTH_FACTOR,
+        device=args.device,
+    )
+    img_size = tuple(cfg.DATA.IMG_SIZE)
+
+    if args.int8_graph:
+        from spef_tpu_torch.quant.int8_cuda import build_cuda_forward, load_int8_graph
+
+        model = None
+        forward_fn = build_cuda_forward(load_int8_graph(args.int8_graph),
+                                        backend=args.int8_backend, device=args.device)
+        print(f"Serving int8 graph ({args.int8_backend} backend)")
+    else:
+        model = import_model(
+            backbone_name=cfg.MODEL.BACKBONE.NAME,
+            head_name=cfg.MODEL.HEAD.NAME,
+            params_path=os.path.join(args.experiment, "model", "parameters.msgpack"),
+            residual=cfg.MODEL.BACKBONE.RESIDUAL,
+            ori_mode=cfg.MODEL.HEAD.ORI,
+            n_ori_bins=spe_utils.orientation.n_bins,
+            pos_mode=cfg.MODEL.HEAD.POS,
+            n_pos_bins=spe_utils.position.n_bins,
+            device=args.device,
+        )
+        forward_fn = None
+    predict = build_predict_fn(model, spe_utils, forward_fn=forward_fn)
+    server = PoseServer(predict, img_shape=(*img_size, 3), max_batch=args.batch,
+                        device=args.device)
+    return server, img_size
+
+
+def run_selftest(args: argparse.Namespace, server, img_size: Tuple[int, int]) -> float:
+    """Sustained throughput on synthetic frames; returns frames/s."""
+    rng = np.random.RandomState(0)
+    n_batches = max(args.selftest_frames // args.batch, 1)
+    frames = rng.randint(0, 256, (args.batch, *img_size, 3), np.uint8)
+    t0 = time.perf_counter()
+    for _ in range(n_batches):
+        server.predict(frames)
+    fps = n_batches * args.batch / (time.perf_counter() - t0)
+    print(f"selftest: {fps:.1f} frames/s sustained, "
+          f"request latency {server.stats()['p50_ms']:.1f} ms p50")
+    return fps
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = parse_args(argv)
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to serve on the CPU")
+    server, img_size = build_server(args)
+    print(f"Warming up (batch window {args.batch})...")
+    print(f"Ready in {server.warmup():.1f}s on {args.device}")
+    run_selftest(args, server, img_size)
+
+
+if __name__ == "__main__":
+    main()

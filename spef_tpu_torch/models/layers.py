@@ -1,0 +1,105 @@
+"""Core NN layers — PyTorch, channels_last inside, NHWC at the model's edge.
+
+Counterparts of ``spef_tpu.models.layers``: ``ConvBnAct`` and
+``InvertedResidual`` with ReLU (not ReLU6), BatchNorm eps 1e-5 and running
+statistics decayed by 0.9 a step (flax's ``momentum=0.9``, which is
+PyTorch's ``momentum=0.1``), Kaiming-normal fan-out conv init drawn from an
+explicit ``torch.Generator``.
+
+``compute_dtype`` (default bfloat16, as in JAX) is the dtype of the conv
+math; parameters stay float32 and BatchNorm runs in float32, then casts
+back, as flax's ``BatchNorm(dtype=float32)`` does.  Modules take and return
+NCHW tensors; the backbone keeps them in ``channels_last`` memory, so the
+NHWC <-> NCHW permutes at its edge are free views.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+__all__ = ["ConvBnAct", "InvertedResidual", "kaiming_normal_fan_out_"]
+
+BN_EPS = 1e-5
+BN_DECAY = 0.9  # flax momentum: running = 0.9 * running + 0.1 * batch
+
+
+def kaiming_normal_fan_out_(w: torch.Tensor, generator: Optional[torch.Generator]) -> None:
+    """Reference conv init: normal with std sqrt(2 / fan_out)."""
+    nn.init.kaiming_normal_(w, mode="fan_out", nonlinearity="relu", generator=generator)
+
+
+class ConvBnAct(nn.Module):
+    """Conv2d + optional BatchNorm + optional ReLU (padding (k-1)//2 by default)."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        features: int,
+        kernel_size: int = 3,
+        stride: int = 1,
+        padding: Optional[int] = None,
+        groups: int = 1,
+        use_bias: bool = False,
+        batchnorm: bool = True,
+        activation: bool = True,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        pad = (kernel_size - 1) // 2 if padding is None else padding
+        self.conv = nn.Conv2d(in_channels, features, kernel_size, stride=stride, padding=pad,
+                              groups=groups, bias=use_bias and not batchnorm)
+        kaiming_normal_fan_out_(self.conv.weight, generator)
+        if self.conv.bias is not None:
+            nn.init.zeros_(self.conv.bias)
+        self.bn = nn.BatchNorm2d(features, eps=BN_EPS, momentum=1.0 - BN_DECAY) if batchnorm else None
+        self.activation = activation
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        bias = None if self.conv.bias is None else self.conv.bias.to(cd)
+        x = torch.nn.functional.conv2d(
+            x.to(cd), self.conv.weight.to(cd), bias, self.conv.stride, self.conv.padding,
+            self.conv.dilation, self.conv.groups)
+        if self.bn is not None:
+            x = self.bn(x.float()).to(cd)
+        if self.activation:
+            x = torch.relu(x)
+        return x
+
+
+class InvertedResidual(nn.Module):
+    """MobileNet-V2 block: expand 1x1 (if t != 1) -> depthwise 3x3 (stride)
+    -> project 1x1 (linear), identity skip when stride 1 and widths match."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        features: int,
+        stride: int,
+        expand_ratio: int,
+        batchnorm: bool = True,
+        residual: bool = True,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if stride not in (1, 2):
+            raise ValueError(f"stride must be 1 or 2, got {stride}")
+        self.use_residual = stride == 1 and in_channels == features and residual
+        hidden = int(round(in_channels * expand_ratio))
+        kw = dict(batchnorm=batchnorm, compute_dtype=compute_dtype, generator=generator)
+        self.expand = (ConvBnAct(in_channels, hidden, kernel_size=1, **kw)
+                       if expand_ratio != 1 else None)
+        self.depthwise = ConvBnAct(hidden, hidden, kernel_size=3, stride=stride, groups=hidden,
+                                   **kw)
+        self.project = ConvBnAct(hidden, features, kernel_size=1, activation=False, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x if self.expand is None else self.expand(x)
+        y = self.project(self.depthwise(y))
+        return x + y if self.use_residual else y

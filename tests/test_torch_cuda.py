@@ -1,0 +1,143 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on the
+card.  Marked ``cuda``: they skip where there is no CUDA device (the CPU
+test run); on a GPU host run them with
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+The kernels build from ``spef_tpu_torch/csrc`` with ``nvcc`` on first use.
+Int8 outputs must agree bit for bit; so must bf16 / f32 outputs, since the
+kernels sum in the plain versions' order and never fuse a multiply-add.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from spef_tpu_torch.ops.int8_ops import (
+    int8_depthwise3x3,
+    int8_depthwise3x3_plain,
+    int8_matmul_requant,
+    int8_matmul_requant_plain,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc) to build and launch the kernels")
+    return torch.device("cuda")
+
+
+def _same(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert torch.equal(a.view(torch.uint8) if a.dtype == torch.int8 else a,
+                       b.view(torch.uint8) if b.dtype == torch.int8 else b)
+
+
+MM_CASES = {
+    "int8_relu": (torch.int8, dict(relu=True, out_inv_step=8.0, out_qmax=15.0)),
+    "bits_in_bits_out": (torch.int8, dict(relu=True, out_inv_step=3.0, out_qmax=255.0,
+                                          in_unsigned=True, out_bits=True)),
+    "residual": (torch.int8, dict(relu=False, out_inv_step=4.0, out_qmax=7.0, out_qmin=-8.0,
+                                  res_ratio=0.75)),
+    "f32_out": (torch.int8, dict(relu=True, out_inv_step=None)),
+    "bf16_in": (torch.bfloat16, dict(relu=False, out_inv_step=2.0, out_qmin=-128.0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MM_CASES))
+@pytest.mark.parametrize("mnk", [(1000, 96, 16), (333, 160, 960), (64, 1280, 320)])
+def test_k1_kernel_matches_plain(dev, case, mnk):
+    m, n, k = mnk
+    dtype, kw = MM_CASES[case]
+    g = torch.Generator().manual_seed(m + n + k)
+    if dtype == torch.bfloat16:
+        x = (torch.rand(m, k, generator=g) * 6).to(torch.bfloat16)
+    else:
+        lo = -128 if kw.get("in_unsigned") else -16
+        x = torch.randint(lo, 16 if lo == -16 else 128, (m, k), generator=g).to(torch.int8)
+    w = torch.randint(-8, 8, (k, n), generator=g).to(torch.int8)
+    mult = torch.rand(n, generator=g) * 1e-2
+    bias = torch.randn(n, generator=g) * 0.1
+    res = torch.randint(-7, 8, (m, n), generator=g).to(torch.int8) if case == "residual" else None
+    args = [t.to(dev) for t in (x, w, mult, bias)]
+    before = int8_matmul_requant.launches
+    got = int8_matmul_requant(*args, residual=None if res is None else res.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert int8_matmul_requant.launches == before + 1
+    want = int8_matmul_requant_plain(*args, residual=None if res is None else res.to(dev), **kw)
+    _same(got, want)
+
+
+DW_CASES = {
+    "s1_int8": (1, torch.int8, dict(out_inv_step=6.0)),
+    "s2_bits_in_bits_out": (2, torch.int8, dict(out_inv_step=2.0, out_qmax=255.0,
+                                                in_unsigned=True, out_bits=True)),
+    "s1_bf16_out": (1, torch.int8, dict(out_inv_step=None)),
+    "s2_real_in_bf16_out": (2, torch.float32, dict(out_inv_step=None, in_step=1.0)),
+    "s1_real_in_int8_out": (1, torch.float32, dict(out_inv_step=6.0, in_step=1.0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DW_CASES))
+@pytest.mark.parametrize("shape", [(2, 120, 192, 32), (3, 15, 24, 960), (1, 7, 5, 3)])
+def test_k2_kernel_matches_plain(dev, case, shape):
+    stride, dtype, kw = DW_CASES[case]
+    kw = {"in_step": 0.05, **kw}
+    g = torch.Generator().manual_seed(sum(shape))
+    if dtype == torch.float32:
+        x = torch.rand(shape, generator=g) * 4
+    else:
+        x = torch.randint(-128, 128, shape, generator=g).to(torch.int8)
+    c = shape[-1]
+    w = torch.randint(-8, 8, (3, 3, c), generator=g).to(torch.int8)
+    mult = torch.rand(c, generator=g) * 1e-2
+    bias = torch.randn(c, generator=g) * 0.05
+    args = [t.to(dev) for t in (x, w, mult, bias)]
+    before = int8_depthwise3x3.launches
+    got = int8_depthwise3x3(*args, stride=stride, **kw)
+    torch.cuda.synchronize()
+    assert int8_depthwise3x3.launches == before + 1
+    _same(got, int8_depthwise3x3_plain(*args, stride=stride, **kw))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(4, 8, dtype=torch.int8, device=dev)
+    w = torch.zeros(8, 4, dtype=torch.int8, device=dev)
+    v = torch.zeros(4, device=dev)
+    with pytest.raises(ValueError):
+        int8_matmul_requant(x.float(), w, v, v, out_inv_step=1.0)  # f32 x
+    with pytest.raises(ValueError):
+        int8_matmul_requant(x, w.t(), v, v, out_inv_step=1.0)  # shape mismatch
+    with pytest.raises(ValueError):
+        int8_matmul_requant(x, w, v.cpu(), v, out_inv_step=1.0)  # mixed devices
+    with pytest.raises(ValueError):
+        int8_depthwise3x3(torch.zeros(1, 4, 4, 8, dtype=torch.int8, device=dev),
+                          torch.zeros(3, 3, 8, dtype=torch.int8, device=dev),
+                          torch.zeros(8, device=dev), torch.zeros(8, device=dev), stride=3)
+
+
+def test_flagship_int8_forward_kernels_match_plain(dev):
+    """The boundary-recipe flagship graph, batch 4 at 240x384: 34 K1 and 17
+    K2 launches a forward, and the same logits as the plain backend."""
+    import os
+
+    from spef_tpu_torch.quant.int8_cuda import build_cuda_forward, load_int8_graph
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    graph = load_int8_graph(os.path.join(repo, "spef_tpu_torch", "assets",
+                                         "flagship_boundary_int8_graph.pkl"))
+    frames = torch.from_numpy(
+        np.random.RandomState(0).randint(0, 256, (4, 240, 384, 3), np.uint8)).to(dev)
+    fwd = build_cuda_forward(graph, backend="cuda", device=dev)
+    assert fwd.launches_per_call == {"int8_matmul_requant": 34, "int8_depthwise3x3": 17}
+    before = (int8_matmul_requant.launches, int8_depthwise3x3.launches)
+    got = fwd(frames)
+    torch.cuda.synchronize()
+    assert (int8_matmul_requant.launches - before[0],
+            int8_depthwise3x3.launches - before[1]) == (34, 17)
+    want = build_cuda_forward(graph, backend="plain", device=dev)(frames)
+    for a, b in zip(got, want):
+        _same(a, b)
