@@ -10,8 +10,11 @@ each printed on its own lines; any failure exits nonzero:
   1. the card (``nvidia-smi`` name and power limit) and the kernel build:
      every ``spef_tpu_torch/csrc/*.cu`` compiled by ``nvcc`` for ``sm_90a``,
      one process per source, all at once;
-  2. every K1 variant and K2 mode against its plain PyTorch version at
-     flagship layer shapes (mismatches must be 0);
+  2. every K1 variant and K2 mode, K3 with a signed and a bits output and
+     K4 over its options (no expand, both residual cases, stride 2 at even
+     and odd height, hidden / depthwise grid on and off, uint8-bits input),
+     each against its plain PyTorch version at flagship layer shapes
+     (mismatches must be 0);
   3. the float flagship (``exp_dspeed_synth``, MobileNetV2 + URSONet,
      240x384) served through ``spef_tpu_torch.apps.serve``: requests of
      256, 37 (padded) and 1 frames; the host-to-device copy and the predict
@@ -22,10 +25,15 @@ each printed on its own lines; any failure exits nonzero:
      predict function and the int8 forward alone timed apart; the kernels'
      logits must equal the plain backend's on the card, and stay within
      0.3 of the plain backend on the CPU;
-  5. each kernel at the main path's own inputs (batch 256): mismatches,
-     kernel / plain / library time (CUDA events) and its bound, printed as
-     one ``{"kernels": [...]}`` JSON line;
-  6. the last line: ``{"ok": true, "device": {...}}``.
+  5. the same int8 graph served by the fused executor
+     (``--int8-executor fused``): counters to 0, then 1 K3, 17 K4 and 1 K1
+     launch a forward; the copy, the predict function and the fused forward
+     alone timed apart; logits equal to the plain backend's on the card; the
+     distance of its logits and poses from the layer executor's printed;
+  6. each kernel at its path's own inputs (batch 256): mismatches, kernel /
+     plain / library time (CUDA events) and its bound, printed as one
+     ``{"kernels": [...]}`` JSON line of four entries;
+  7. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, where ``torch.cuda.is_available()`` is
 false or the package is missing.
@@ -57,7 +65,18 @@ KERNELS = {
         "source": "spef_tpu_torch/csrc/int8_depthwise3x3.cu",
         "replaces": "spef_tpu/ops/pallas/int8_ops.py:252",
     },
+    "fused_stem": {
+        "source": "spef_tpu_torch/csrc/fused_stem.cu",
+        "replaces": "spef_tpu/ops/pallas/fused_block.py:980",
+    },
+    "fused_mbconv": {
+        "source": "spef_tpu_torch/csrc/fused_mbconv.cu",
+        "replaces": "spef_tpu/ops/pallas/fused_block.py:633",
+    },
 }
+# What one forward of each executor launches.
+LAYER_LAUNCHES = {"int8_matmul_requant": 34, "int8_depthwise3x3": 17}
+FUSED_LAUNCHES = {"fused_stem": 1, "fused_mbconv": 17, "int8_matmul_requant": 1}
 
 
 def log(msg: str) -> None:
@@ -122,6 +141,42 @@ def dw_bound(args, kw):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _bound(nbytes, ops_by_rate):
+    """(ms, "bytes" | "operations"): bytes at the memory rate against the
+    operations, each kind at its own peak rate."""
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = sum(ops / PEAK_OPS_S[rate] for rate, ops in ops_by_rate.items())
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def stem_bound(args, kw):
+    x, w = args[0], args[1]
+    b, h, wd, _ = x.shape
+    cout = w.shape[-1]
+    npix = b * ((h - 1) // 2 + 1) * ((wd - 1) // 2 + 1)
+    nbytes = x.numel() + npix * cout + w.numel() + 8 * cout
+    return _bound(nbytes, {"int8": 2 * 27 * npix * cout})
+
+
+def mbconv_bound(args, kw):
+    """Input and output once as int8 plus the weights; the expand at the int8
+    tensor rate, the projection at the int8 rate when the depthwise output
+    is on a grid and at the bf16 rate when it is real-valued, the nine taps
+    at the float32 rate."""
+    x, wts = args
+    b, h, wd, cin = x.shape
+    ch, cout = wts["w3"].shape
+    s = kw.get("stride", 1)
+    npix_in, npix_out = b * h * wd, b * ((h - 1) // s + 1) * ((wd - 1) // s + 1)
+    nbytes = x.numel() + npix_out * cout + sum(t.numel() * t.element_size() for t in wts.values())
+    ops = {"f32": 2 * 9 * npix_out * ch}
+    proj = "int8" if kw.get("inv_d") is not None else "bf16"
+    ops[proj] = 2 * npix_out * ch * cout
+    if "w1" in wts:
+        ops["int8"] = ops.get("int8", 0) + 2 * npix_in * cin * ch
+    return _bound(nbytes, ops)
+
+
 # ---------------------------------------------------------------------------
 # Library yardsticks (timed here only; the port never calls them).
 # ---------------------------------------------------------------------------
@@ -157,6 +212,39 @@ def dw_library(args, kw):
         memory_format=torch.channels_last)
     s = kw.get("stride", 1)
     return lambda: torch.nn.functional.conv2d(xb, wb, stride=s, padding=1, groups=c)
+
+
+def stem_library(args, kw):
+    """One bf16 ``F.conv2d(stride=2)`` on a channels_last view."""
+    import torch
+
+    x, w = args[0], args[1]
+    xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)  # NHWC memory = channels_last
+    wb = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return lambda: torch.nn.functional.conv2d(xb, wb, stride=2, padding=1)
+
+
+def mbconv_library(args, kw):
+    """No single PyTorch call computes a block: the chain of three bf16
+    ``F.conv2d`` calls (1x1, depthwise 3x3, 1x1) on channels_last views,
+    without the requants between them."""
+    import torch
+
+    x, wts = args
+    conv2d = torch.nn.functional.conv2d
+    cl = lambda t: t.contiguous(memory_format=torch.channels_last)  # noqa: E731
+    xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+    ch, cout = wts["w3"].shape
+    w1 = cl(wts["w1"].to(torch.bfloat16).t().reshape(ch, -1, 1, 1)) if "w1" in wts else None
+    w2 = cl(wts["w2"].to(torch.bfloat16).permute(2, 0, 1).reshape(ch, 1, 3, 3))
+    w3 = cl(wts["w3"].to(torch.bfloat16).t().reshape(cout, ch, 1, 1))
+    s = kw.get("stride", 1)
+
+    def run():
+        h = conv2d(xb, w1) if w1 is not None else xb
+        return conv2d(conv2d(h, w2, stride=s, padding=1, groups=ch), w3)
+
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -248,8 +336,90 @@ def phase_variants(torch, dev):
         total += mis
         log(f"[variants] K2 {name} {tuple(shape)}: {mis} mismatches, "
             f"max |kernel - plain| {err}")
+    total += _fused_variants(torch, dev, g)
     if total:
         raise AssertionError(f"{total} kernel/plain mismatches across the variants")
+
+
+def random_mbconv_operands(g, cin, ch, cout, expand=True, hidden_grid=False, dw_grid=False,
+                           residual=None):
+    """Random K4 operands (``wts``, keyword arguments) from the generator
+    ``g``, scaled so that every stage spreads over its range.  ``residual``:
+    None, "ratio" (the consumer has another step) or "same".  Also used by
+    tests/test_torch_cuda.py."""
+    import torch
+
+    rnd = lambda n, s: torch.rand(n, generator=g) * s  # noqa: E731
+    wint = lambda *shape: torch.randint(-8, 8, shape, generator=g).to(torch.int8)  # noqa: E731
+    wts = {}
+    if expand:
+        wts.update(w1=wint(cin, ch), m1=rnd(ch, 4.0 / (cin ** 0.5 * 170.0)),
+                   b1=torch.randn(ch, generator=g) * 0.05)
+    h_scale = 20.0 if (expand and hidden_grid) else (1.0 if expand else 40.0)
+    wts.update(w2=wint(3, 3, ch), m2=rnd(ch, 0.3 / h_scale),
+               b2=torch.randn(ch, generator=g) * 0.05, w3=wint(ch, cout),
+               m3=rnd(cout, 4.0 / (ch ** 0.5 * 14.0 * (20.0 if dw_grid else 1.0))),
+               b3=torch.randn(cout, generator=g) * 0.05)
+    kw = dict(inv_h=20.0 if (expand and hidden_grid) else None, qmax_h=255.0,
+              inv_d=20.0 if dw_grid else None, qmax_d=255.0,
+              use_residual=residual is not None, inv_sh=12.0, qmax_sh=127.0,
+              ratio_out={None: 10.0, "ratio": 0.8, "same": None}[residual])
+    return wts, kw
+
+
+def _fused_variants(torch, dev, g):
+    """K3 with a signed and a bits output, and K4 over its options, each at a
+    flagship shape at batch 256 against its plain version; returns the
+    mismatches."""
+    from spef_tpu_torch.ops.fused_block import (
+        fused_mbconv, fused_mbconv_plain, fused_stem, fused_stem_plain)
+
+    total = 0
+    frames = torch.randint(0, 256, (BATCH, 240, 384, 3), generator=g).to(torch.uint8).to(dev)
+    w = torch.randint(-8, 8, (3, 3, 3, 32), generator=g).to(torch.int8).to(dev)
+    mult = (torch.rand(32, generator=g) * 2e-2 / 255.0).to(dev)
+    bias = (torch.randn(32, generator=g) * 0.05).to(dev)
+    for name, qmax in (("int8_out", 127.0), ("bits_out", 255.0)):
+        a = fused_stem(frames, w, mult, bias, inv_step=qmax / 0.3, qmax=qmax)
+        b = fused_stem_plain(frames, w, mult, bias, inv_step=qmax / 0.3, qmax=qmax)
+        torch.cuda.synchronize()
+        mis, err = diff(a, b)
+        total += mis
+        log(f"[variants] K3 {name} {tuple(frames.shape)} -> {tuple(a.shape)}: {mis} mismatches, "
+            f"max |kernel - plain| {err}")
+        del a, b
+    del frames
+    cases = {
+        # name: (x shape, Ch, Cout, stride, in_unsigned, operand options)
+        "no_expand_in_unsigned_s1": ((BATCH, 120, 192, 32), 32, 16, 1, True, dict(expand=False)),
+        "s2_even_height": ((BATCH, 120, 192, 16), 96, 24, 2, False, dict()),
+        "s1_residual_ratio": ((BATCH, 60, 96, 24), 144, 24, 1, False, dict(residual="ratio")),
+        "s1_residual_same_step": ((BATCH, 15, 24, 96), 576, 96, 1, False,
+                                  dict(residual="same")),
+        "s2_odd_height_15_to_8": ((BATCH, 15, 24, 96), 576, 160, 2, False, dict()),
+        "s1_hidden_960": ((BATCH, 8, 12, 160), 960, 320, 1, False, dict()),
+        "grids_on_s1_residual_ratio": ((BATCH, 30, 48, 64), 384, 64, 1, False,
+                                       dict(hidden_grid=True, dw_grid=True, residual="ratio")),
+        "grids_on_s2_in_unsigned": ((BATCH, 60, 96, 32), 192, 64, 2, True,
+                                    dict(hidden_grid=True, dw_grid=True)),
+        "hidden_grid_only_s1": ((BATCH, 15, 24, 64), 384, 96, 1, False, dict(hidden_grid=True)),
+        "dw_grid_only_s2": ((BATCH, 30, 48, 32), 192, 64, 2, False, dict(dw_grid=True)),
+    }
+    for name, (shape, ch, cout, stride, unsigned, opts) in cases.items():
+        lo, hi = (-128, 128) if unsigned else (-64, 64)
+        x = torch.randint(lo, hi, shape, generator=g).to(torch.int8).to(dev)
+        wts, kw = random_mbconv_operands(g, shape[-1], ch, cout, **opts)
+        wts = {k: v.to(dev) for k, v in wts.items()}
+        kw.update(stride=stride, in_unsigned=unsigned)
+        a = fused_mbconv(x, wts, **kw)
+        b = fused_mbconv_plain(x, wts, **kw)
+        torch.cuda.synchronize()
+        mis, err = diff(a, b)
+        total += mis
+        log(f"[variants] K4 {name} {tuple(shape)} Ch={ch} -> {tuple(a.shape)}: {mis} mismatches, "
+            f"max |kernel - plain| {err}, {a.unique().numel()} distinct values")
+        del a, b, x
+    return total
 
 
 def _serve(torch, args_list):
@@ -340,79 +510,135 @@ def phase_float(torch, np, dev, frames):
     assert ang < 10.0 and d_pos_bf16 < 0.5, (ang, d_pos_bf16)
 
 
-def phase_int8(torch, np, dev, frames):
+def _counters():
+    from spef_tpu_torch.ops.fused_block import fused_mbconv, fused_stem
     from spef_tpu_torch.ops.int8_ops import int8_depthwise3x3, int8_matmul_requant
-    from spef_tpu_torch.quant.int8_cuda import build_cuda_forward, load_int8_graph
 
-    server, _ = _serve(torch, ["--experiment", FLAGSHIP, "--int8-graph", ASSET,
-                               "--int8-backend", "cuda", "--batch", str(BATCH)])
-    # The main path: counts to 0, drive (warmup + requests), read the counts.
-    int8_matmul_requant.launches = 0
-    int8_depthwise3x3.launches = 0
-    log(f"[int8] warmup {server.warmup():.2f} s")
-    pose = _drive(np, server, frames, "int8")
+    return {"int8_matmul_requant": int8_matmul_requant, "int8_depthwise3x3": int8_depthwise3x3,
+            "fused_stem": fused_stem, "fused_mbconv": fused_mbconv}
+
+
+def _drive_counted(np, server, frames, label, per_forward):
+    """A main path: every launch count to 0, warmup + requests, read the
+    counts; they must be exactly what ``per_forward`` says, forward for
+    forward, and 0 for the kernels that are not on this path."""
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    log(f"[{label}] warmup {server.warmup():.2f} s")
+    pose = _drive(np, server, frames, label)
     forwards = 1 + 3 + 4  # warmup, the three requests, the sustained run
-    launches = {"int8_matmul_requant": int8_matmul_requant.launches,
-                "int8_depthwise3x3": int8_depthwise3x3.launches}
-    log(f"[int8] launches over {forwards} forwards: {launches}")
-    assert launches == {"int8_matmul_requant": 34 * forwards,
-                        "int8_depthwise3x3": 17 * forwards}, launches
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"[{label}] launches over {forwards} forwards: {launches}")
+    want = {name: per_forward.get(name, 0) * forwards for name in counters}
+    assert launches == want, (launches, want)
+    return pose, launches
 
-    x = _request_parts(torch, server, frames, "int8")
+
+def phase_int8(torch, np, dev, frames, executor):
+    """The committed int8 graph served by one executor: ``layer`` (K1/K2,
+    one kernel a layer) or ``fused`` (K3/K4, one kernel a block, then K1)."""
+    from spef_tpu_torch.quant.int8_cuda import build_cuda_forward
+    from spef_tpu_torch.quant.int8_fused import build_fused_forward
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph
+
+    label = "int8" if executor == "layer" else "fused"
+    build, per_forward = ((build_cuda_forward, LAYER_LAUNCHES) if executor == "layer"
+                          else (build_fused_forward, FUSED_LAUNCHES))
+    server, _ = _serve(torch, ["--experiment", FLAGSHIP, "--int8-graph", ASSET,
+                               "--int8-executor", executor, "--int8-backend", "cuda",
+                               "--batch", str(BATCH)])
+    pose, launches = _drive_counted(np, server, frames, label, per_forward)
+
+    x = _request_parts(torch, server, frames, label)
     graph = load_int8_graph(ASSET)
-    fwd_cuda = build_cuda_forward(graph, backend="cuda", device=dev)
-    assert fwd_cuda.launches_per_call == {"int8_matmul_requant": 34, "int8_depthwise3x3": 17}
-    log(f"[int8] batch {BATCH} on the card: int8 forward alone "
+    fwd_cuda = build(graph, backend="cuda", device=dev)
+    assert fwd_cuda.launches_per_call == per_forward
+    log(f"[{label}] batch {BATCH} on the card: int8 forward alone "
         f"{time_ms(lambda: fwd_cuda(x), reps=3):.3f} ms")
     got = fwd_cuda(x)
-    want = build_cuda_forward(graph, backend="plain", device=dev)(x)
+    want = build(graph, backend="plain", device=dev)(x)
     torch.cuda.synchronize()
     for name, a, b in zip(("ori", "pos"), got, want):
         mis, err = diff(a, b)
-        log(f"[int8] cuda vs plain on the card, {name} logits {tuple(a.shape)}: "
+        log(f"[{label}] cuda vs plain on the card, {name} logits {tuple(a.shape)}: "
             f"{mis} mismatches, max |d| {err}")
         assert mis == 0, name
     assert np.array_equal(pose["ori_soft"], torch.softmax(got[0], -1).cpu().numpy())
-    cpu = build_cuda_forward(graph, backend="plain", device="cpu")(torch.from_numpy(frames[:2]))
+    cpu = build(graph, backend="plain", device="cpu")(torch.from_numpy(frames[:2]))
     d = max(float((a[:2].cpu() - b).abs().max()) for a, b in zip(got, cpu))
-    log(f"[int8] card vs plain on the CPU (2 frames): max |d logit| {d:.4g}")
+    log(f"[{label}] card vs plain on the CPU (2 frames): max |d logit| {d:.4g}")
     assert d < 0.3, d
-    return launches
+    return launches, pose, got
 
 
-def phase_kernels(torch, dev, frames, launches):
-    """Each kernel at the main path's own inputs (one batch-256 forward)."""
-    import spef_tpu_torch.quant.int8_cuda as int8_cuda
-    from spef_tpu_torch.ops import int8_ops
-    from spef_tpu_torch.quant.int8_cuda import build_cuda_forward, load_int8_graph
+def log_executor_distance(np, layer, fused):
+    """How far the fused executor's logits and poses are from the layer
+    executor's on the same frames.  They follow different JAX twins (a
+    float32 against a bf16 hidden tensor, integer pixels against pixels / 255
+    in bf16 in the stem), so this is reported, not required to be 0."""
+    (_, layer_pose, layer_logits), (_, pose, logits) = layer, fused
+    d_logit = max(float((a - b).abs().max()) for a, b in zip(logits, layer_logits))
+    dot = np.clip(np.abs((pose["ori"] * layer_pose["ori"]).sum(-1)), 0.0, 1.0)
+    ang = 2.0 * np.degrees(np.arccos(dot))
+    d_pos = np.linalg.norm(pose["pos"] - layer_pose["pos"], axis=-1)
+    log(f"[fused] fused vs layer executor over {BATCH} random frames: max |d logit| "
+        f"{d_logit:.4g}; orientation mean {ang.mean():.3f} deg, max {ang.max():.3f} deg; "
+        f"position mean {d_pos.mean():.4f} m, max {d_pos.max():.4f} m")
 
-    calls = {name: [] for name in KERNELS}
 
-    def recorder(name):
-        fn = getattr(int8_ops, name)
+def _recorded_calls(torch, module, names, build, frames, dev):
+    """One forward of ``build()`` with ``module``'s kernel wrappers replaced
+    by recorders; returns {name: [(args, kw), ...]} with the tensors each
+    call got on the card."""
+    calls = {name: [] for name in names}
 
+    def recorder(name, fn):
         def rec(*args, **kw):
             calls[name].append((args, kw))
             return fn(*args, **kw)
         return rec
 
-    saved = {name: getattr(int8_cuda, name) for name in KERNELS}
+    saved = {name: getattr(module, name) for name in names}
     try:
-        for name in KERNELS:
-            setattr(int8_cuda, name, recorder(name))
-        fwd = build_cuda_forward(load_int8_graph(ASSET), backend="cuda", device=dev)
+        for name, fn in saved.items():
+            setattr(module, name, recorder(name, fn))
+        fwd = build()
     finally:
         for name, fn in saved.items():
-            setattr(int8_cuda, name, fn)
+            setattr(module, name, fn)
     fwd(torch.from_numpy(frames).to(dev))
     torch.cuda.synchronize()
+    return calls
+
+
+def phase_kernels(torch, dev, frames, launches):
+    """Each kernel at its main path's own inputs (one batch-256 forward):
+    K1 and K2 on the layer executor's, K3 and K4 on the fused executor's."""
+    import spef_tpu_torch.quant.int8_cuda as int8_cuda
+    import spef_tpu_torch.quant.int8_fused as int8_fused
+    from spef_tpu_torch.ops import fused_block, int8_ops
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph
+
+    graph = load_int8_graph(ASSET)
+    calls = _recorded_calls(
+        torch, int8_cuda, ("int8_matmul_requant", "int8_depthwise3x3"),
+        lambda: int8_cuda.build_cuda_forward(graph, backend="cuda", device=dev), frames, dev)
+    calls.update(_recorded_calls(
+        torch, int8_fused, ("fused_stem", "fused_mbconv"),
+        lambda: int8_fused.build_fused_forward(graph, backend="cuda", device=dev), frames, dev))
+    table = {
+        # name: (module, bound, library yardstick, its label)
+        "int8_matmul_requant": (int8_ops, mm_bound, mm_library, "bf16 matmul + epilogue ops"),
+        "int8_depthwise3x3": (int8_ops, dw_bound, dw_library, "bf16 conv2d(groups=C)"),
+        "fused_stem": (fused_block, stem_bound, stem_library, "bf16 conv2d(stride=2)"),
+        "fused_mbconv": (fused_block, mbconv_bound, mbconv_library, "chain of 3"),
+    }
 
     rows = []
     for name, recs in calls.items():
-        kernel = getattr(int8_ops, name)
-        plain = getattr(int8_ops, name + "_plain")
-        bound_fn = mm_bound if name == "int8_matmul_requant" else dw_bound
-        lib_fn = mm_library if name == "int8_matmul_requant" else dw_library
+        module, bound_fn, lib_fn, lib_label = table[name]
+        kernel, plain = getattr(module, name), getattr(module, name + "_plain")
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                "bytes_ms": 0.0, "ops_ms": 0.0}
         mismatches, max_err = 0, 0.0
@@ -437,8 +663,8 @@ def phase_kernels(torch, dev, frames, launches):
                 f"library {l_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
         log(f"[kernels] {name}: {len(recs)} calls a forward, {mismatches} mismatches, "
             f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, library "
-            f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms a batch-{BATCH} "
-            f"forward ({tot['ms'] / tot['bound_ms']:.1f}x the bound)")
+            f"({lib_label}) {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms a "
+            f"batch-{BATCH} forward ({tot['ms'] / tot['bound_ms']:.1f}x the bound)")
         if mismatches:
             raise AssertionError(f"{name}: {mismatches} kernel/plain mismatches")
         rows.append({
@@ -446,7 +672,7 @@ def phase_kernels(torch, dev, frames, launches):
             "launches": launches[name], "max_abs_err": max_err,
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
-            "library_ms": tot["library_ms"], "mismatches": mismatches,
+            "library_ms": tot["library_ms"], "library": lib_label, "mismatches": mismatches,
             "calls_per_forward": len(recs),
         })
     return rows
@@ -471,8 +697,17 @@ def main() -> int:
     phase_variants(torch, dev)
     frames = np.random.RandomState(0).randint(0, 256, (BATCH, 240, 384, 3), np.uint8)
     phase_float(torch, np, dev, frames)
-    launches = phase_int8(torch, np, dev, frames)
+    layer = phase_int8(torch, np, dev, frames, "layer")
+    fused = phase_int8(torch, np, dev, frames, "fused")
+    log_executor_distance(np, layer, fused)
+    layer_launches, fused_launches = layer[0], fused[0]
+    # K1 is on both paths: its row keeps the layer executor's count (its
+    # times are of those 34 calls); the fused path's is beside it.
+    launches = {name: layer_launches[name] or fused_launches[name] for name in KERNELS}
     rows = phase_kernels(torch, dev, frames, launches)
+    for row in rows:
+        if row["name"] == "int8_matmul_requant":
+            row["launches_fused_path"] = fused_launches["int8_matmul_requant"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

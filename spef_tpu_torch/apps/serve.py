@@ -7,7 +7,12 @@ serving program on one device and runs a throughput / latency self-test.
 Usage:
     python -m spef_tpu_torch.apps.serve --experiment experiments/train_synth/exp_dspeed_synth \\
         [--int8-graph spef_tpu_torch/assets/flagship_boundary_int8_graph.pkl] \\
-        [--int8-backend cuda|plain] [--batch 256] [--selftest-frames 2048] [--device cuda]
+        [--int8-executor layer|fused] [--int8-backend cuda|plain] \\
+        [--batch 256] [--selftest-frames 2048] [--device cuda]
+
+``--int8-executor layer`` runs one kernel a layer (K1/K2,
+``quant.int8_cuda.build_cuda_forward``); ``fused`` runs the deployment
+executor, one kernel a block (K3/K4, ``quant.int8_fused.build_fused_forward``).
 
 ``--frames-dir``, the native frame loader, crop-refine and ``--artifact``
 come in later slices (ROADMAP §A: data, keypoints family, deploy and serve).
@@ -31,6 +36,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--experiment", required=True)
     parser.add_argument("--int8-graph", default=None, help="int8_graph.pkl (numpy leaves)")
+    parser.add_argument("--int8-executor", default="layer", choices=["layer", "fused"],
+                        help="layer: one kernel a layer (K1/K2); fused: one a block (K3/K4)")
     parser.add_argument("--int8-backend", default="cuda", choices=["cuda", "plain"])
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--selftest-frames", type=int, default=2048)
@@ -66,12 +73,15 @@ def build_server(args: argparse.Namespace):
     img_size = tuple(cfg.DATA.IMG_SIZE)
 
     if args.int8_graph:
-        from spef_tpu_torch.quant.int8_cuda import build_cuda_forward, load_int8_graph
+        from spef_tpu_torch.quant.int8_cuda import build_cuda_forward
+        from spef_tpu_torch.quant.int8_fused import build_fused_forward
+        from spef_tpu_torch.quant.int8_graph import load_int8_graph
 
         model = None
-        forward_fn = build_cuda_forward(load_int8_graph(args.int8_graph),
-                                        backend=args.int8_backend, device=args.device)
-        print(f"Serving int8 graph ({args.int8_backend} backend)")
+        build = build_fused_forward if args.int8_executor == "fused" else build_cuda_forward
+        forward_fn = build(load_int8_graph(args.int8_graph), backend=args.int8_backend,
+                           device=args.device)
+        print(f"Serving int8 graph ({args.int8_executor} executor, {args.int8_backend} backend)")
     else:
         model = import_model(
             backbone_name=cfg.MODEL.BACKBONE.NAME,

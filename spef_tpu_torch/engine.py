@@ -6,7 +6,8 @@ Counterpart of ``spef_tpu.engine`` (``build_predict_fn`` and ``SPEJax``):
 
 PyTorch runs eagerly, so the predict function is a plain function under
 ``torch.inference_mode``.  The int8 path passes its own ``forward_fn``
-(``spef_tpu_torch.quant.int8_cuda.build_cuda_forward``).
+(``spef_tpu_torch.quant.int8_cuda.build_cuda_forward``, or
+``quant.int8_fused.build_fused_forward``, which takes the raw uint8 frames).
 """
 
 from __future__ import annotations
@@ -38,13 +39,16 @@ def build_predict_fn(
     """Build the (preprocess -> forward -> activ -> decode) function.
 
     ``forward_fn(images) -> raw outputs`` defaults to ``model``.  Images are
-    NHWC on the model's device, uint8 [0, 255] or float [0, 1].
+    NHWC on the model's device, uint8 [0, 255] or float [0, 1].  A
+    ``forward_fn`` whose ``takes_uint8`` attribute is true folds the
+    normalization itself and gets uint8 frames as they are.
     """
     fwd = forward_fn or model
+    normalize = not getattr(fwd, "takes_uint8", False)
 
     @torch.inference_mode()
     def predict(images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        if images.dtype == torch.uint8:
+        if normalize and images.dtype == torch.uint8:
             # An IEEE division, as JAX's: a CUDA tensor divided by a Python
             # scalar becomes a multiply by the reciprocal.
             images = images.float() / torch.tensor(255.0, device=images.device)

@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "build_all", "load_library", "nvcc_path", "check"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("int8_matmul_requant", "int8_depthwise3x3")
+SOURCES = ("int8_matmul_requant", "int8_depthwise3x3", "fused_stem", "fused_mbconv")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

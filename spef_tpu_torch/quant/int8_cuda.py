@@ -29,7 +29,7 @@ device-resident weights); ``forward`` only launches.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,37 +40,19 @@ from spef_tpu_torch.ops.int8_ops import (
     int8_matmul_requant,
     int8_matmul_requant_plain,
 )
+from spef_tpu_torch.quant.int8_graph import (
+    bits_int8,
+    build_head_tail,
+    consumer_grid,
+    emit_unsigned,
+    load_int8_graph,
+    mm_weights,
+    requant_signed,
+    scalars,
+    true_div,
+)
 
 __all__ = ["build_cuda_forward", "load_int8_graph"]
-
-
-def _grid_params(step: float, qmax: float, signed: bool) -> Dict[str, float]:
-    return {"step": step, "qmax": qmax, "qmin": -qmax - 1 if signed else 0.0}
-
-
-def _true_div(y: torch.Tensor, d: float) -> torch.Tensor:
-    """``y / d`` as an IEEE division.  On CUDA, PyTorch turns division by a
-    Python scalar into a multiply by its reciprocal, which can differ by an
-    ulp; a 0-d device tensor keeps the division."""
-    return y / torch.tensor(d, dtype=torch.float32, device=y.device)
-
-
-def _emit_unsigned(y: torch.Tensor, step: float, qmax: float) -> torch.Tensor:
-    """Round/clip to an unsigned grid; int8 when it fits, else int16 (the
-    head-conv emit: its only consumer is the f32 mean pool)."""
-    dt = torch.int8 if qmax <= 127.0 else torch.int16
-    return torch.clamp(torch.round(_true_div(y, step)), 0, qmax).to(dt)
-
-
-def _bits_int8(q: torch.Tensor) -> torch.Tensor:
-    """Unsigned q in [0, 255] (f32) -> its uint8 bits in an int8 container."""
-    return torch.where(q > 127.0, q - 256.0, q).to(torch.int8)
-
-
-def _decode_unsigned_f32(y: torch.Tensor) -> torch.Tensor:
-    """int8 bits-carry -> true unsigned q as f32 (exact)."""
-    yf = y.float()
-    return yf + 256.0 * (yf < 0)
 
 
 @contextlib.contextmanager
@@ -82,26 +64,6 @@ def _no_tf32_convs():
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = saved
-
-
-def _scalars(v: Any) -> Any:
-    """0-d array leaves -> Python scalars (``engine.py``'s ``.item()`` rule)."""
-    if isinstance(v, dict):
-        return {k: _scalars(x) for k, x in v.items()}
-    if isinstance(v, (list, tuple)):
-        return type(v)(_scalars(x) for x in v)
-    if getattr(v, "ndim", None) == 0:
-        return v.item()
-    return v
-
-
-def load_int8_graph(path: str) -> Dict[str, Any]:
-    """Load an ``int8_graph.pkl`` (numpy leaves, as ``apps/build_int8.py``
-    writes it), 0-d leaves as Python scalars."""
-    import pickle
-
-    with open(path, "rb") as f:  # a graph file this project wrote
-        return _scalars(pickle.load(f))
 
 
 def build_cuda_forward(
@@ -123,36 +85,12 @@ def build_cuda_forward(
     dw = int8_depthwise3x3 if backend == "cuda" else int8_depthwise3x3_plain
     dev = torch.device(device)
     f32 = np.float32
-    graph = _scalars(graph)
+    graph = scalars(graph)
 
     def tensor(a, dtype) -> torch.Tensor:
         return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
 
-    def mm_weights(layer, in_step: float) -> Dict[str, torch.Tensor]:
-        w = np.asarray(layer["w_int"])
-        # Folded multiplier in float32, as JAX computes f32 array * Python float.
-        mult = np.asarray(layer["mult_core"], f32) * f32(in_step)
-        return {"w": tensor(w.reshape(w.shape[-2], w.shape[-1]), torch.int8),
-                "mult": tensor(mult, torch.float32),
-                "bias": tensor(np.asarray(layer["bias"], f32), torch.float32)}
-
     blocks = graph["blocks"]
-    n_blocks = len(blocks)
-
-    # The grid each block's OUTPUT is emitted on: the next consumer's shared
-    # grid when it has one, else the block's own shared grid, else None.
-    def consumer_grid(i: int) -> Optional[Dict[str, float]]:
-        if i + 1 < n_blocks:
-            nxt = blocks[i + 1]
-            if "shared_step" in nxt and (nxt["input_quant"] or nxt["use_residual"]):
-                return _grid_params(nxt["shared_step"], nxt["shared_qmax"], signed=True)
-        else:
-            fs = graph["final_shared"]
-            return _grid_params(fs["step"], fs["qmax"], signed=True)
-        blk = blocks[i]
-        if "shared_step" in blk:
-            return _grid_params(blk["shared_step"], blk["shared_qmax"], signed=True)
-        return None
 
     # ---- plan: walk the graph once with the static step / bits bookkeeping.
     stem = graph["stem"]
@@ -182,7 +120,7 @@ def build_cuda_forward(
             e = blk["expand"]
             has_grid = "act_step" in e
             e_wide = has_grid and e["act_qmax"] > 127.0
-            bp["expand"] = {**mm_weights(e, hstep), "kw": dict(
+            bp["expand"] = {**mm_weights(e, hstep, tensor), "kw": dict(
                 relu=True,
                 out_inv_step=float(1.0 / e["act_step"]) if has_grid else None,
                 out_qmax=float(e["act_qmax"]) if has_grid else 127.0,
@@ -215,7 +153,7 @@ def build_cuda_forward(
         hstep = d["act_step"] if dw_grid else 1.0
 
         p = blk["project"]
-        out_grid = consumer_grid(i)
+        out_grid = consumer_grid(graph, i)
         if out_grid is None:
             raise NotImplementedError("float handoff between blocks is not in this family")
         if blk["use_residual"]:
@@ -231,7 +169,7 @@ def build_cuda_forward(
             kw = dict(relu=False, out_inv_step=float(1.0 / out_grid["step"]),
                       out_qmax=float(out_grid["qmax"]), out_qmin=float(out_grid["qmin"]),
                       in_unsigned=hwide)
-        bp["project"] = {**mm_weights(p, hstep), "kw": kw, "residual": blk["use_residual"]}
+        bp["project"] = {**mm_weights(p, hstep, tensor), "kw": kw, "residual": blk["use_residual"]}
         step = out_grid["step"]
         plan.append(bp)
 
@@ -242,23 +180,14 @@ def build_cuda_forward(
         step = fs["step"]
     hcnv = graph["head_conv"]
     head_wide = hcnv["act_qmax"] > 127.0
-    head_conv = {**mm_weights(hcnv, step), "kw": dict(
+    head_conv = {**mm_weights(hcnv, step, tensor), "kw": dict(
         relu=True,
         # An unsigned 8-bit head grid does not fit the int8 emit: f32 out,
         # then snapped to the grid as int16 for the f32 mean pool.
         out_inv_step=None if head_wide else float(1.0 / hcnv["act_step"]),
         out_qmax=float(hcnv["act_qmax"]), out_qmin=0.0)}
     head_step = float(hcnv["act_step"])
-    head = graph["head"]
-    pool_step, pool_qmax = float(head["pool_step"]), float(head["pool_qmax"])
-
-    def fc_weights(w_int, scale, bias):
-        return (tensor(np.asarray(w_int), torch.float64),
-                tensor(np.asarray(scale, f32) * f32(pool_step), torch.float32),
-                tensor(np.asarray(bias, f32), torch.float32))
-
-    fc_ori = fc_weights(head["ori_w_int"], head["ori_scale"], head["ori_bias"])
-    fc_pos = fc_weights(head["pos_w_int"], head["pos_scale"], head["pos_bias"])
+    tail = build_head_tail(graph["head"], head_step, tensor)
     image_levels = 2.0 ** graph["image_bits"] - 1.0
 
     def run_mm(x2d: torch.Tensor, layer: Dict[str, Any], residual=None) -> torch.Tensor:
@@ -267,10 +196,10 @@ def build_cuda_forward(
 
     def forward(images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if images.dtype == torch.uint8:
-            x = _true_div(images.float(), 255.0)
+            x = true_div(images.float(), 255.0)
         else:
-            x = _true_div(torch.round(torch.clamp(images.float(), 0.0, 1.0) * image_levels),
-                          image_levels)
+            x = true_div(torch.round(torch.clamp(images.float(), 0.0, 1.0) * image_levels),
+                         image_levels)
 
         # Stem: bf16-rounded inputs, f32 products and sums (exact products,
         # TF32 off), then requant — a bf16-output conv would lose bits first.
@@ -279,15 +208,13 @@ def build_cuda_forward(
             y = torch.nn.functional.conv2d(xb, stem_plan["w"], stride=2, padding=1)
         y = y.permute(0, 2, 3, 1)
         y = torch.clamp_min(y * stem_plan["mult"] + stem_plan["bias"], 0.0)
-        q = torch.clamp(torch.round(_true_div(y, stem_plan["step"])), 0, stem_plan["qmax"])
-        y = (_bits_int8(q) if stem_plan["wide"] else q.to(torch.int8)).contiguous()
+        q = torch.clamp(torch.round(true_div(y, stem_plan["step"])), 0, stem_plan["qmax"])
+        y = (bits_int8(q) if stem_plan["wide"] else q.to(torch.int8)).contiguous()
 
         for bp in plan:
             if "requant_in" in bp:
                 r = bp["requant_in"]
-                yf = _decode_unsigned_f32(y) if r["wide"] else y.float()
-                y = torch.clamp(torch.round(yf * r["ratio"]), -r["qmax"] - 1,
-                                r["qmax"]).to(torch.int8)
+                y = requant_signed(y, r["ratio"], r["qmax"], unsigned=r["wide"])
             residual = y
             b, h, w, c = y.shape
             hcur = y
@@ -302,28 +229,13 @@ def build_cuda_forward(
             y = run_mm(hcur.reshape(hb * hh * hw, hc), p, residual=res2d).view(hb, hh, hw, -1)
 
         if final_ratio is not None:
-            y = torch.clamp(torch.round(y.float() * final_ratio), -fs["qmax"] - 1,
-                            fs["qmax"]).to(torch.int8)
+            y = requant_signed(y, final_ratio, fs["qmax"])
 
         b2, h2, w2, c2 = y.shape
         y = run_mm(y.reshape(b2 * h2 * w2, c2), head_conv).view(b2, h2, w2, -1)
         if head_wide:
-            y = _emit_unsigned(y, head_step, hcnv["act_qmax"])
-
-        # Head: int sum -> f32 mean (a multiply by 1/n, as jnp.mean) -> pool
-        # grid -> int8 FC, summed exactly in float64 (K = 1280 products of
-        # int8 pass 2^24, where float32 sums stop being exact).
-        pooled = y.float().sum(dim=(1, 2)) * float(np.float32(1.0 / (h2 * w2)))
-        pooled = pooled * head_step
-        p_int = torch.clamp(torch.round(_true_div(pooled, pool_step)), -pool_qmax - 1,
-                            pool_qmax)
-
-        def fc(weights):
-            w_int, scale, bias = weights
-            acc = (p_int.double() @ w_int).float()
-            return acc * scale + bias
-
-        return fc(fc_ori), fc(fc_pos)
+            y = emit_unsigned(y, head_step, hcnv["act_qmax"])
+        return tail(y)
 
     forward.launches_per_call = {  # what one forward launches on backend="cuda"
         "int8_matmul_requant": sum(("expand" in bp) + 1 for bp in plan) + 1,

@@ -6,14 +6,26 @@ test run); on a GPU host run them with
 
 The kernels build from ``spef_tpu_torch/csrc`` with ``nvcc`` on first use.
 Int8 outputs must agree bit for bit; so must bf16 / f32 outputs, since the
-kernels sum in the plain versions' order and never fuse a multiply-add.
+kernels sum in the plain versions' order and never fuse a multiply-add whose
+product is inexact.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from spef_tpu_torch.ops.int8_ops import (
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import random_mbconv_operands  # noqa: E402 - the repo root's smoke script
+from spef_tpu_torch.ops.fused_block import (  # noqa: E402
+    fused_mbconv,
+    fused_mbconv_plain,
+    fused_stem,
+    fused_stem_plain,
+)
+from spef_tpu_torch.ops.int8_ops import (  # noqa: E402
     int8_depthwise3x3,
     int8_depthwise3x3_plain,
     int8_matmul_requant,
@@ -103,6 +115,73 @@ def test_k2_kernel_matches_plain(dev, case, shape):
     _same(got, int8_depthwise3x3_plain(*args, stride=stride, **kw))
 
 
+STEM_CASES = {
+    # name: (frames shape, Cout, qmax)
+    "flagship_bits": ((2, 240, 384, 3), 32, 255.0),
+    "flagship_int8": ((2, 240, 384, 3), 32, 127.0),
+    "odd_size_odd_channels": ((3, 9, 13, 3), 10, 255.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STEM_CASES))
+def test_k3_kernel_matches_plain(dev, case):
+    shape, cout, qmax = STEM_CASES[case]
+    g = torch.Generator().manual_seed(cout + shape[1])
+    frames = torch.randint(0, 256, shape, generator=g).to(torch.uint8)
+    w = torch.randint(-8, 8, (3, 3, 3, cout), generator=g).to(torch.int8)
+    mult = torch.rand(cout, generator=g) * 2e-2 / 255.0
+    bias = torch.randn(cout, generator=g) * 0.05
+    args = [t.to(dev) for t in (frames, w, mult, bias)]
+    before = fused_stem.launches
+    got = fused_stem(*args, inv_step=qmax / 0.3, qmax=qmax)
+    torch.cuda.synchronize()
+    assert fused_stem.launches == before + 1
+    _same(got, fused_stem_plain(*args, inv_step=qmax / 0.3, qmax=qmax))
+    assert got.unique().numel() > 16
+
+
+K4_CASES = {
+    # name: (x shape, Ch, Cout, stride, in_unsigned, random_mbconv_operands kwargs)
+    # the flagship's blocks 0, 1, 2, 13, 15 and 16 under the boundary recipe
+    "b0_no_expand_in_unsigned": ((2, 120, 192, 32), 32, 16, 1, True, dict(expand=False)),
+    "b1_s2": ((2, 120, 192, 16), 96, 24, 2, False, dict()),
+    "b2_s1_residual_ratio": ((2, 60, 96, 24), 144, 24, 1, False, dict(residual="ratio")),
+    "b13_s2_odd_height": ((3, 15, 24, 96), 576, 160, 2, False, dict()),
+    "b15_s1_residual_same_step": ((3, 8, 12, 160), 960, 160, 1, False, dict(residual="same")),
+    "b16_s1": ((3, 8, 12, 160), 960, 320, 1, False, dict()),
+    # interiors on grids, and each grid alone
+    "grids_s1_residual_ratio": ((2, 30, 48, 64), 384, 64, 1, False,
+                                dict(hidden_grid=True, dw_grid=True, residual="ratio")),
+    "grids_s2_in_unsigned": ((2, 30, 48, 32), 192, 64, 2, True,
+                             dict(hidden_grid=True, dw_grid=True)),
+    "hidden_grid_only_s1": ((2, 15, 24, 64), 384, 96, 1, False, dict(hidden_grid=True)),
+    "dw_grid_only_s2": ((2, 15, 24, 64), 384, 96, 2, False, dict(dw_grid=True)),
+    "no_expand_dw_grid_s2": ((2, 16, 12, 32), 32, 24, 2, False,
+                             dict(expand=False, dw_grid=True)),
+    # channel counts off a multiple of 4: the byte-wise loads and stores
+    "odd_channels_s1_residual": ((2, 7, 5, 6), 10, 6, 1, False, dict(residual="ratio")),
+    "odd_channels_s2_in_unsigned": ((2, 7, 5, 6), 10, 7, 2, True, dict(hidden_grid=True)),
+    "odd_channels_no_expand": ((1, 5, 9, 5), 5, 3, 1, True, dict(expand=False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K4_CASES))
+def test_k4_kernel_matches_plain(dev, case):
+    shape, ch, cout, stride, unsigned, kwargs = K4_CASES[case]
+    g = torch.Generator().manual_seed(sum(shape) + ch)
+    lo, hi = (-128, 128) if unsigned else (-64, 64)
+    x = torch.randint(lo, hi, shape, generator=g).to(torch.int8).to(dev)
+    wts, kw = random_mbconv_operands(g, shape[-1], ch, cout, **kwargs)
+    wts = {k: v.to(dev) for k, v in wts.items()}
+    kw.update(stride=stride, in_unsigned=unsigned)
+    before = fused_mbconv.launches
+    got = fused_mbconv(x, wts, **kw)
+    torch.cuda.synchronize()
+    assert fused_mbconv.launches == before + 1
+    _same(got, fused_mbconv_plain(x, wts, **kw))
+    assert got.unique().numel() > 16
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros(4, 8, dtype=torch.int8, device=dev)
     w = torch.zeros(8, 4, dtype=torch.int8, device=dev)
@@ -117,13 +196,24 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         int8_depthwise3x3(torch.zeros(1, 4, 4, 8, dtype=torch.int8, device=dev),
                           torch.zeros(3, 3, 8, dtype=torch.int8, device=dev),
                           torch.zeros(8, device=dev), torch.zeros(8, device=dev), stride=3)
+    frames = torch.zeros(1, 4, 4, 3, dtype=torch.uint8, device=dev)
+    w = torch.zeros(3, 3, 3, 4, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        fused_stem(frames.to(torch.int8), w, v, v)  # not uint8
+    with pytest.raises(ValueError):
+        fused_stem(frames, w, v.cpu(), v)  # mixed devices
+    wts, kw = random_mbconv_operands(torch.Generator().manual_seed(0), 8, 16, 8)
+    wts = {k: t.to(dev) for k, t in wts.items()}
+    x8 = torch.zeros(1, 4, 4, 8, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        fused_mbconv(x8, wts, **{**kw, "use_residual": True, "stride": 2})
+    with pytest.raises(ValueError):
+        fused_mbconv(x8, {**wts, "m3": wts["m3"].cpu()}, **kw)  # mixed devices
 
 
 def test_flagship_int8_forward_kernels_match_plain(dev):
     """The boundary-recipe flagship graph, batch 4 at 240x384: 34 K1 and 17
     K2 launches a forward, and the same logits as the plain backend."""
-    import os
-
     from spef_tpu_torch.quant.int8_cuda import build_cuda_forward, load_int8_graph
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -139,5 +229,30 @@ def test_flagship_int8_forward_kernels_match_plain(dev):
     assert (int8_matmul_requant.launches - before[0],
             int8_depthwise3x3.launches - before[1]) == (34, 17)
     want = build_cuda_forward(graph, backend="plain", device=dev)(frames)
+    for a, b in zip(got, want):
+        _same(a, b)
+
+
+def test_flagship_fused_forward_kernels_match_plain(dev):
+    """The boundary-recipe flagship graph through the fused executor, batch 4
+    at 240x384: 1 K3, 17 K4 and 1 K1 launch a forward, and the same logits as
+    the plain backend."""
+    from spef_tpu_torch.quant.int8_fused import build_fused_forward
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    graph = load_int8_graph(os.path.join(repo, "spef_tpu_torch", "assets",
+                                         "flagship_boundary_int8_graph.pkl"))
+    frames = torch.from_numpy(
+        np.random.RandomState(0).randint(0, 256, (4, 240, 384, 3), np.uint8)).to(dev)
+    fwd = build_fused_forward(graph, backend="cuda", device=dev)
+    assert fwd.launches_per_call == {"fused_stem": 1, "fused_mbconv": 17,
+                                     "int8_matmul_requant": 1}
+    counters = (fused_stem, fused_mbconv, int8_matmul_requant)
+    before = [f.launches for f in counters]
+    got = fwd(frames)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(counters, before)] == [1, 17, 1]
+    want = build_fused_forward(graph, backend="plain", device=dev)(frames)
     for a, b in zip(got, want):
         _same(a, b)

@@ -70,3 +70,47 @@ def test_serve_refuses_cuda_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):
         serve.main(["--experiment", FLAGSHIP, "--device", "cuda"])
+
+
+def test_int8_serve_fused_executor_gets_the_uint8_frames():
+    """``--int8-executor fused`` on a small graph: the served path hands the
+    fused forward the raw uint8 frames (it folds the normalization) and gives
+    what the forward gives, through the padding window."""
+    import pickle
+    import tempfile
+
+    from spef_tpu_torch.quant.int8_fused import build_fused_forward
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph
+
+    # The flagship graph cut to its first two blocks (still 1232 + 1000
+    # bins), with a head conv of random weights on the narrower input.
+    graph = load_int8_graph(ASSET)
+    cin = np.asarray(graph["blocks"][1]["project"]["w_int"]).shape[-1]
+    w_head = np.random.RandomState(3).randint(-8, 8, (1, 1, cin, 1280)).astype(np.int8)
+    small = dict(graph, blocks=graph["blocks"][:2],
+                 head_conv=dict(graph["head_conv"], w_int=w_head))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "int8_graph.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(small, f, protocol=4)
+        args = serve.parse_args(["--experiment", FLAGSHIP, "--int8-graph", path,
+                                 "--int8-executor", "fused", "--int8-backend", "plain",
+                                 "--batch", "3", "--device", "cpu"])
+        server, _ = serve.build_server(args)
+    frames = _frames(2, seed=5)
+    pose, _ = server.predict(frames)  # padded 2 -> 3
+    assert pose["ori"].shape == (2, 4) and pose["pos"].shape == (2, 3)
+    assert np.isfinite(pose["ori"]).all()
+    fwd = build_fused_forward(small, backend="plain", device="cpu")
+    assert fwd.launches_per_call == {"fused_stem": 1, "fused_mbconv": 2,
+                                     "int8_matmul_requant": 1}
+    ori, pos = fwd(torch.from_numpy(frames))
+    np.testing.assert_array_equal(pose["ori_soft"], torch.softmax(ori, -1).numpy())
+    np.testing.assert_array_equal(pose["pos_soft"], torch.softmax(pos, -1).numpy())
+
+
+def test_serve_int8_executor_defaults_to_layer():
+    args = serve.parse_args(["--experiment", FLAGSHIP])
+    assert args.int8_executor == "layer" and args.int8_backend == "cuda"
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--experiment", FLAGSHIP, "--int8-executor", "xla"])
