@@ -12,9 +12,15 @@ each printed on its own lines; any failure exits nonzero:
      one process per source, all at once;
   2. every K1 variant and K2 mode, K3 with a signed and a bits output and
      K4 over its options (no expand, both residual cases, stride 2 at even
-     and odd height, hidden / depthwise grid on and off, uint8-bits input),
-     each against its plain PyTorch version at flagship layer shapes
-     (mismatches must be 0);
+     and odd height, hidden / depthwise grid on and off, uint8-bits input,
+     Cin padded to the mma depth, exact sums), each against its plain
+     PyTorch version at flagship layer shapes.  Mismatches must be 0, but
+     for K4 with a real-valued depthwise output: its tensor-core projection
+     may move an output by one step where the value rounded last sits on a
+     tie (``fused_mbconv_rounding_input``; up to ceil(ratio) steps where a
+     residual sum is requantized by a ratio above 1, which no flagship
+     block does); such mismatches are counted and printed with the largest
+     of them, any other fails;
   3. the float flagship (``exp_dspeed_synth``, MobileNetV2 + URSONet,
      240x384) served through ``spef_tpu_torch.apps.serve``: requests of
      256, 37 (padded) and 1 frames; the host-to-device copy and the predict
@@ -28,11 +34,13 @@ each printed on its own lines; any failure exits nonzero:
   5. the same int8 graph served by the fused executor
      (``--int8-executor fused``): counters to 0, then 1 K3, 17 K4 and 1 K1
      launch a forward; the copy, the predict function and the fused forward
-     alone timed apart; logits equal to the plain backend's on the card; the
-     distance of its logits and poses from the layer executor's printed;
-  6. each kernel at its path's own inputs (batch 256): mismatches, kernel /
-     plain / library time (CUDA events) and its bound, printed as one
-     ``{"kernels": [...]}`` JSON line of four entries;
+     alone timed apart; logits within 0.3 of the plain backend's on the card
+     (K4's tie rule), the distance printed; the distance of its logits and
+     poses from the layer executor's printed;
+  6. each kernel at its path's own inputs (batch 256): mismatches (K4 under
+     its tie rule), kernel / plain / library time (CUDA events) and its
+     bound, printed as one ``{"kernels": [...]}`` JSON line of four entries;
+     K1's one call on the fused path (the head conv) is timed apart;
   7. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, where ``torch.cuda.is_available()`` is
@@ -74,6 +82,10 @@ KERNELS = {
         "replaces": "spef_tpu/ops/pallas/fused_block.py:633",
     },
 }
+# Kernels redesigned for Hopper after their first port.
+REDESIGNED = ("int8_depthwise3x3", "fused_mbconv")
+# The most of K4's outputs that may sit on a tie and differ from the plain version.
+TIE_SHARE = 0.005
 # What one forward of each executor launches.
 LAYER_LAUNCHES = {"int8_matmul_requant": 34, "int8_depthwise3x3": 17}
 FUSED_LAUNCHES = {"fused_stem": 1, "fused_mbconv": 17, "int8_matmul_requant": 1}
@@ -108,6 +120,34 @@ def diff(a, b):
     d = (a.float() - b.float()).abs()
     bits = a.view(torch.uint8) != b.view(torch.uint8) if a.dtype == torch.int8 else a != b
     return int(bits.sum()), float(d.max()) if d.numel() else 0.0
+
+
+def check_mbconv(a, args, kw):
+    """K4's output ``a`` against its plain version under K4's contract;
+    returns (mismatches, max |a - plain|, steps the rule admits at a tie).
+    With the depthwise output on a grid every sum is exact: 0 mismatches.
+    Otherwise a mismatch must be one the tie rule admits, and at most
+    ``TIE_SHARE`` of the outputs may differ.  The rule admits one int8 step,
+    but where a residual sum is requantized by a ratio above 1: there one
+    step of the shared grid is up to ceil(ratio) output steps.  Raises on
+    anything else."""
+    from spef_tpu_torch.ops.fused_block import (
+        fused_mbconv_plain, fused_mbconv_rounding_input, tie_mismatches)
+
+    x, wts = args
+    b = fused_mbconv_plain(x, wts, **kw)
+    mis, err = diff(a, b)
+    if kw.get("inv_d") is not None:
+        if mis:
+            raise AssertionError(f"fused_mbconv: {mis} mismatches with the depthwise output "
+                                 f"on a grid")
+        return 0, err, 0
+    v, eps, step = fused_mbconv_rounding_input(x, wts, **kw)
+    mis, refused = tie_mismatches(a, b, v, eps, step)
+    if refused or err > step or mis > TIE_SHARE * a.numel():
+        raise AssertionError(f"fused_mbconv: {mis} mismatches of {a.numel()} outputs, {refused} "
+                             f"of them not within {step} step(s) at a tie (max |d| {err})")
+    return mis, err, step
 
 
 # ---------------------------------------------------------------------------
@@ -168,7 +208,9 @@ def mbconv_bound(args, kw):
     ch, cout = wts["w3"].shape
     s = kw.get("stride", 1)
     npix_in, npix_out = b * h * wd, b * ((h - 1) // s + 1) * ((wd - 1) // s + 1)
-    nbytes = x.numel() + npix_out * cout + sum(t.numel() * t.element_size() for t in wts.values())
+    operands = ("w1", "m1", "b1", "w2", "m2", "b2", "w3", "m3", "b3")  # not their packed copies
+    nbytes = x.numel() + npix_out * cout + sum(
+        wts[k].numel() * wts[k].element_size() for k in operands if k in wts)
     ops = {"f32": 2 * 9 * npix_out * ch}
     proj = "int8" if kw.get("inv_d") is not None else "bf16"
     ops[proj] = 2 * npix_out * ch * cout
@@ -318,6 +360,9 @@ def phase_variants(torch, dev):
                                 dict(out_inv_step=None, in_unsigned=True)),
         "f32_in_bf16_out_s2": ((BATCH, 15, 24, 576), 2, "real", dict(out_inv_step=None)),
         "f32_in_int8_out_s1": ((BATCH, 8, 12, 960), 1, "real", dict(out_inv_step=6.0)),
+        # blocks 1 and 2 as the boundary recipe runs them: float32 in, bf16 out
+        "f32_in_bf16_out_s2_block1": ((BATCH, 120, 192, 96), 2, "real", dict(out_inv_step=None)),
+        "f32_in_bf16_out_s1_block2": ((BATCH, 60, 96, 144), 1, "real", dict(out_inv_step=None)),
     }
     for name, (shape, stride, src, kw) in dw_cases.items():
         if src == "real":
@@ -336,21 +381,34 @@ def phase_variants(torch, dev):
         total += mis
         log(f"[variants] K2 {name} {tuple(shape)}: {mis} mismatches, "
             f"max |kernel - plain| {err}")
+        del a, b, x, args
     total += _fused_variants(torch, dev, g)
     if total:
         raise AssertionError(f"{total} kernel/plain mismatches across the variants")
 
 
 def random_mbconv_operands(g, cin, ch, cout, expand=True, hidden_grid=False, dw_grid=False,
-                           residual=None):
+                           residual=None, exact=False):
     """Random K4 operands (``wts``, keyword arguments) from the generator
     ``g``, scaled so that every stage spreads over its range.  ``residual``:
-    None, "ratio" (the consumer has another step) or "same".  Also used by
-    tests/test_torch_cuda.py."""
+    None, "ratio" (the consumer has another step) or "same".  ``exact``
+    (for inputs in [-8, 8), no grids): small integer weights, power-of-two
+    multipliers and biases in eighths, so that every product and partial sum
+    is exact in float32 and no summation order can change a bit.  Also used
+    by the tests."""
     import torch
 
     rnd = lambda n, s: torch.rand(n, generator=g) * s  # noqa: E731
     wint = lambda *shape: torch.randint(-8, 8, shape, generator=g).to(torch.int8)  # noqa: E731
+    if exact:
+        small = lambda *shape: torch.randint(-4, 4, shape, generator=g).to(torch.int8)  # noqa: E731
+        eighths = lambda n: torch.randint(-8, 8, (n,), generator=g).float() / 8.0  # noqa: E731
+        wts = dict(w1=small(cin, ch), m1=torch.full((ch,), 0.125), b1=eighths(ch),
+                   w2=small(3, 3, ch), m2=torch.full((ch,), 0.25), b2=eighths(ch),
+                   w3=small(ch, cout), m3=torch.full((cout,), 0.125), b3=eighths(cout))
+        kw = dict(inv_h=None, inv_d=None, use_residual=residual is not None, inv_sh=1.0,
+                  qmax_sh=127.0, ratio_out=2.0)
+        return wts, kw
     wts = {}
     if expand:
         wts.update(w1=wint(cin, ch), m1=rnd(ch, 4.0 / (cin ** 0.5 * 170.0)),
@@ -371,8 +429,7 @@ def _fused_variants(torch, dev, g):
     """K3 with a signed and a bits output, and K4 over its options, each at a
     flagship shape at batch 256 against its plain version; returns the
     mismatches."""
-    from spef_tpu_torch.ops.fused_block import (
-        fused_mbconv, fused_mbconv_plain, fused_stem, fused_stem_plain)
+    from spef_tpu_torch.ops.fused_block import fused_mbconv, fused_stem, fused_stem_plain
 
     total = 0
     frames = torch.randint(0, 256, (BATCH, 240, 384, 3), generator=g).to(torch.uint8).to(dev)
@@ -404,21 +461,29 @@ def _fused_variants(torch, dev, g):
                                     dict(hidden_grid=True, dw_grid=True)),
         "hidden_grid_only_s1": ((BATCH, 15, 24, 64), 384, 96, 1, False, dict(hidden_grid=True)),
         "dw_grid_only_s2": ((BATCH, 30, 48, 32), 192, 64, 2, False, dict(dw_grid=True)),
+        # block 3: Cin 24 is padded with zeros to the mma depth of 32
+        "s2_cin24_padded_k": ((BATCH, 60, 96, 24), 144, 32, 2, False, dict()),
+        # every product and partial sum exact: the tensor cores' order cannot show
+        "exact_sums_s1_residual": ((BATCH, 30, 48, 32), 64, 32, 1, False,
+                                   dict(exact=True, residual="ratio")),
+        "exact_sums_s2": ((BATCH, 30, 48, 32), 64, 32, 2, False, dict(exact=True)),
     }
     for name, (shape, ch, cout, stride, unsigned, opts) in cases.items():
-        lo, hi = (-128, 128) if unsigned else (-64, 64)
+        lo, hi = (-8, 8) if opts.get("exact") else ((-128, 128) if unsigned else (-64, 64))
         x = torch.randint(lo, hi, shape, generator=g).to(torch.int8).to(dev)
         wts, kw = random_mbconv_operands(g, shape[-1], ch, cout, **opts)
         wts = {k: v.to(dev) for k, v in wts.items()}
         kw.update(stride=stride, in_unsigned=unsigned)
         a = fused_mbconv(x, wts, **kw)
-        b = fused_mbconv_plain(x, wts, **kw)
         torch.cuda.synchronize()
-        mis, err = diff(a, b)
-        total += mis
-        log(f"[variants] K4 {name} {tuple(shape)} Ch={ch} -> {tuple(a.shape)}: {mis} mismatches, "
-            f"max |kernel - plain| {err}, {a.unique().numel()} distinct values")
-        del a, b, x
+        mis, err, step = check_mbconv(a, (x, wts), kw)
+        rule = f"tie rule, {step} step(s) admitted" if step else "exact"
+        log(f"[variants] K4 {name} {tuple(shape)} Ch={ch} -> {tuple(a.shape)}: {mis} mismatches "
+            f"({rule}; share {mis / a.numel():.2e}), max |kernel - plain| {err}, "
+            f"{a.unique().numel()} distinct values")
+        if opts.get("exact"):
+            total += mis  # nothing to round differently: must be 0
+        del a, x
     return total
 
 
@@ -562,8 +627,17 @@ def phase_int8(torch, np, dev, frames, executor):
     for name, a, b in zip(("ori", "pos"), got, want):
         mis, err = diff(a, b)
         log(f"[{label}] cuda vs plain on the card, {name} logits {tuple(a.shape)}: "
-            f"{mis} mismatches, max |d| {err}")
-        assert mis == 0, name
+            f"{mis} mismatches, max |d logit| {err}")
+        if executor == "layer":
+            assert mis == 0, name  # K1 and K2 equal their plain versions bit for bit
+        else:
+            assert err < 0.3, (name, err)  # K4's ties move a few activations by one step
+    if executor == "fused":
+        plain_server, _ = _serve(torch, ["--experiment", FLAGSHIP, "--int8-graph", ASSET,
+                                         "--int8-executor", executor, "--int8-backend", "plain",
+                                         "--batch", str(BATCH)])
+        log_distance(np, "kernels vs plain backend on the card", (pose, got),
+                     (plain_server.predict(frames)[0], want))
     assert np.array_equal(pose["ori_soft"], torch.softmax(got[0], -1).cpu().numpy())
     cpu = build(graph, backend="plain", device="cpu")(torch.from_numpy(frames[:2]))
     d = max(float((a[:2].cpu() - b).abs().max()) for a, b in zip(got, cpu))
@@ -572,19 +646,26 @@ def phase_int8(torch, np, dev, frames, executor):
     return launches, pose, got
 
 
+def log_distance(np, what, a, b):
+    """How far two runs' logits and poses are on the same frames; ``a`` and
+    ``b`` are (pose, logits)."""
+    (pose_a, logits_a), (pose_b, logits_b) = a, b
+    d_logit = max(float((x - y).abs().max()) for x, y in zip(logits_a, logits_b))
+    dot = np.clip(np.abs((pose_a["ori"] * pose_b["ori"]).sum(-1)), 0.0, 1.0)
+    ang = 2.0 * np.degrees(np.arccos(dot))
+    d_pos = np.linalg.norm(pose_a["pos"] - pose_b["pos"], axis=-1)
+    log(f"[fused] {what} over {BATCH} random frames: max |d logit| "
+        f"{d_logit:.4g}; orientation mean {ang.mean():.3f} deg, max {ang.max():.3f} deg; "
+        f"position mean {d_pos.mean():.4f} m, max {d_pos.max():.4f} m")
+
+
 def log_executor_distance(np, layer, fused):
     """How far the fused executor's logits and poses are from the layer
     executor's on the same frames.  They follow different JAX twins (a
     float32 against a bf16 hidden tensor, integer pixels against pixels / 255
     in bf16 in the stem), so this is reported, not required to be 0."""
     (_, layer_pose, layer_logits), (_, pose, logits) = layer, fused
-    d_logit = max(float((a - b).abs().max()) for a, b in zip(logits, layer_logits))
-    dot = np.clip(np.abs((pose["ori"] * layer_pose["ori"]).sum(-1)), 0.0, 1.0)
-    ang = 2.0 * np.degrees(np.arccos(dot))
-    d_pos = np.linalg.norm(pose["pos"] - layer_pose["pos"], axis=-1)
-    log(f"[fused] fused vs layer executor over {BATCH} random frames: max |d logit| "
-        f"{d_logit:.4g}; orientation mean {ang.mean():.3f} deg, max {ang.max():.3f} deg; "
-        f"position mean {d_pos.mean():.4f} m, max {d_pos.max():.4f} m")
+    log_distance(np, "fused vs layer executor", (pose, logits), (layer_pose, layer_logits))
 
 
 def _recorded_calls(torch, module, names, build, frames, dev):
@@ -624,9 +705,11 @@ def phase_kernels(torch, dev, frames, launches):
     calls = _recorded_calls(
         torch, int8_cuda, ("int8_matmul_requant", "int8_depthwise3x3"),
         lambda: int8_cuda.build_cuda_forward(graph, backend="cuda", device=dev), frames, dev)
-    calls.update(_recorded_calls(
-        torch, int8_fused, ("fused_stem", "fused_mbconv"),
-        lambda: int8_fused.build_fused_forward(graph, backend="cuda", device=dev), frames, dev))
+    fused_calls = _recorded_calls(
+        torch, int8_fused, ("fused_stem", "fused_mbconv", "int8_matmul_requant"),
+        lambda: int8_fused.build_fused_forward(graph, backend="cuda", device=dev), frames, dev)
+    head_conv = fused_calls.pop("int8_matmul_requant")  # K1's one call on the fused path
+    calls.update(fused_calls)
     table = {
         # name: (module, bound, library yardstick, its label)
         "int8_matmul_requant": (int8_ops, mm_bound, mm_library, "bf16 matmul + epilogue ops"),
@@ -635,46 +718,88 @@ def phase_kernels(torch, dev, frames, launches):
         "fused_mbconv": (fused_block, mbconv_bound, mbconv_library, "chain of 3"),
     }
 
+    def measure(name, i, args, kw):
+        """One call: (mismatches, max error, kernel / plain / library / bound ms, bound by,
+        steps K4's tie rule admitted)."""
+        module, bound_fn, lib_fn, _ = table[name]
+        kernel, plain = getattr(module, name), getattr(module, name + "_plain")
+        a = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        step = 0
+        if name == "fused_mbconv":
+            mis, err, step = check_mbconv(a, args, kw)
+        else:
+            mis, err = diff(a, plain(*args, **kw))
+        numel = a.numel()
+        del a
+        k_ms = time_ms(lambda: kernel(*args, **kw), reps=10)
+        p_ms = time_ms(lambda: plain(*args, **kw), reps=2)
+        l_ms = time_ms(lib_fn(args, kw), reps=10)
+        b_ms, by = bound_fn(args, kw)
+        extra = ""
+        if name == "fused_mbconv":
+            x, wts = args
+            tile = fused_block.choose_mbconv_tile(
+                *x.shape, *wts["w3"].shape, kw["stride"], "w1" in wts, kw["inv_d"] is not None,
+                kw["use_residual"])
+            extra = (f", tile {tile[0]}x{tile[1]}, mismatching share {mis / numel:.2e}, largest "
+                     f"|kernel - plain| {err:g} of {step} step(s) admitted at a tie")
+        log(f"[kernels] {name} call {i}: in {tuple(args[0].shape)} {args[0].dtype}, "
+            f"{mis} mismatches, kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+            f"library {l_ms:.4f} ms, bound {b_ms:.4f} ms ({by}){extra}")
+        return mis, err, k_ms, p_ms, l_ms, b_ms, by, step
+
     rows = []
     for name, recs in calls.items():
-        module, bound_fn, lib_fn, lib_label = table[name]
-        kernel, plain = getattr(module, name), getattr(module, name + "_plain")
+        lib_label = table[name][3]
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                "bytes_ms": 0.0, "ops_ms": 0.0}
-        mismatches, max_err = 0, 0.0
+        mismatches, max_err, max_step = 0, 0.0, 0
         for i, (args, kw) in enumerate(recs):
-            a = kernel(*args, **kw)
-            b = plain(*args, **kw)
-            torch.cuda.synchronize()
-            mis, err = diff(a, b)
-            mismatches, max_err = mismatches + mis, max(max_err, err)
-            del a, b
-            k_ms = time_ms(lambda: kernel(*args, **kw), reps=10)
-            p_ms = time_ms(lambda: plain(*args, **kw), reps=2)
-            l_ms = time_ms(lib_fn(args, kw), reps=10)
-            b_ms, by = bound_fn(args, kw)
+            mis, err, k_ms, p_ms, l_ms, b_ms, by, step = measure(name, i, args, kw)
+            mismatches, max_err, max_step = mismatches + mis, max(max_err, err), max(max_step, step)
             tot["ms"] += k_ms
             tot["plain_ms"] += p_ms
             tot["library_ms"] += l_ms
             tot["bound_ms"] += b_ms
             tot["bytes_ms" if by == "bytes" else "ops_ms"] += b_ms
-            log(f"[kernels] {name} call {i}: in {tuple(args[0].shape)} {args[0].dtype}, "
-                f"{mis} mismatches, kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
-                f"library {l_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
         log(f"[kernels] {name}: {len(recs)} calls a forward, {mismatches} mismatches, "
             f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, library "
             f"({lib_label}) {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms a "
             f"batch-{BATCH} forward ({tot['ms'] / tot['bound_ms']:.1f}x the bound)")
-        if mismatches:
+        if mismatches and name != "fused_mbconv":
             raise AssertionError(f"{name}: {mismatches} kernel/plain mismatches")
-        rows.append({
+        if name == "fused_mbconv" and (max_step != 1 or max_err > 1):
+            # No residual ratio of this graph is above 1: one int8 step at a tie, no more.
+            raise AssertionError(f"fused_mbconv: max |kernel - plain| {max_err} with "
+                                 f"{max_step} step(s) admitted; the flagship allows one")
+        row = {
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": launches[name], "max_abs_err": max_err,
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
             "library_ms": tot["library_ms"], "library": lib_label, "mismatches": mismatches,
-            "calls_per_forward": len(recs),
-        })
+            "calls_per_forward": len(recs), "redesigned": name in REDESIGNED,
+        }
+        if name == "fused_mbconv":
+            # Every one of them admitted by the tie rule (check_mbconv raises
+            # otherwise); max_abs_err is the largest of them, in int8 steps, and
+            # tie_steps_admitted the most the rule admitted at any call.
+            row["tie_mismatches"] = mismatches
+            row["tie_steps_admitted"] = max_step
+        rows.append(row)
+
+    # K1's head-conv call of the fused path (int8 in, float32 out), apart.
+    (args, kw), = head_conv
+    mis, err, k_ms, p_ms, l_ms, b_ms, by, _ = measure("int8_matmul_requant", "fused-path", args,
+                                                      kw)
+    if mis:
+        raise AssertionError(f"int8_matmul_requant on the fused path: {mis} mismatches")
+    for row in rows:
+        if row["name"] == "int8_matmul_requant":
+            row["fused_path"] = {"calls_per_forward": 1, "ms": k_ms, "plain_ms": p_ms,
+                                 "library_ms": l_ms, "bound_ms": b_ms, "bound_by": by,
+                                 "max_abs_err": err}
     return rows
 
 

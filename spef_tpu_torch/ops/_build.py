@@ -26,8 +26,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("int8_matmul_requant", "int8_depthwise3x3", "fused_stem", "fused_mbconv")
+# --split-compile 0: the kernels of one source are optimised on as many
+# threads as the host has cores (K4's four instantiations are most of the
+# build).
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "--split-compile", "0", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

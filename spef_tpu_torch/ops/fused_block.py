@@ -22,36 +22,58 @@ counts its kernel launches in its ``launches`` attribute.
 
 Numerics shared by kernel and plain version (and the JAX kernels):
 
-  * integer operands (the stem's pixels, the expand's input) sum exactly;
+  * integer operands (the stem's pixels, the expand's input, the projection
+    of a depthwise output on a grid) sum exactly, on the int8 tensor cores
+    in K4;
   * the hidden tensor stays float32 unless the expand has an activation
     grid; the depthwise sums its nine taps in (dy, dx) order in float32,
     each product rounded before it is added (it is inexact on a float32
-    hidden tensor, so a fused multiply-add would change it);
-  * the depthwise output is rounded to bf16 (exact on a grid) and the
-    projection sums its exact products in float32 in k order 0..K-1;
+    hidden tensor, so a fused multiply-add would change it): hidden tensor
+    and depthwise output are bit for bit the same in kernel and plain
+    version;
+  * a real-valued depthwise output is rounded to bf16 and the projection
+    sums its exact products in float32.  The plain version sums in k order
+    0..K-1; K4 sums on the bf16 tensor cores, in their order, as the JAX
+    kernel's ``jnp.dot(..., preferred_element_type=float32)`` does.  The two
+    sums differ by rounding only, which can move an output by one int8 step
+    where the value that is rounded last sits on a tie:
+    :func:`fused_mbconv_rounding_input` returns that value and the bound on
+    its error, :func:`tie_mismatches` applies the rule and counts;
   * ``y = acc * mult + bias`` is a rounded multiply then a rounded add;
     rounding to a grid is half to even; every scalar is the host's double
     rounded once to float32.
+
+K4 reads its two weight matrices in the layouts its tensor-core loads want
+(:func:`pack_mbconv_weights`, once when a forward is built) and takes its
+output tile from :func:`choose_mbconv_tile`, a cost model in the kernel's
+own units that a measured per-shape table can replace.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Optional
+import functools
+import math
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from spef_tpu_torch.ops import _build
 from spef_tpu_torch.ops.int8_ops import _decode, _encode_bits, _f32
 
-__all__ = ["fused_stem", "fused_stem_plain", "fused_mbconv", "fused_mbconv_plain"]
+__all__ = [
+    "fused_stem", "fused_stem_plain", "fused_mbconv", "fused_mbconv_plain",
+    "pack_mbconv_weights", "unpack_mbconv_weights", "choose_mbconv_tile", "mbconv_smem_bytes",
+    "mbconv_warp_grid", "fused_mbconv_rounding_input", "tie_mismatches",
+]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
 _STEM_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P]
-_MBCONV_ARGTYPES = ([_P, _I] + [_P] * 10 + [_I] * 7 + [_I, _F, _F] * 2 + [_I] + [_F] * 5 + [_P])
+_MBCONV_ARGTYPES = ([_P, _I] + [_P] * 3 + [_I] * 8 + [_I, _F, _F] * 2 + [_I] + [_F] * 5
+                    + [_I, _I, _P])
 
 # Elements of the largest intermediate a plain version holds at once; above
 # it the plain version goes image chunk by image chunk (block 1's hidden
@@ -164,6 +186,60 @@ fused_stem.launches = 0
 # K4: fused inverted-residual block
 # ---------------------------------------------------------------------------
 
+_MB_KEYS = ("stride", "in_unsigned", "inv_h", "qmax_h", "inv_d", "qmax_d", "use_residual",
+            "inv_sh", "qmax_sh", "ratio_out", "qmin_o", "qmax_o")
+
+
+def _mbconv_depthwise(xc: torch.Tensor, wts: Dict[str, torch.Tensor], stride: int,
+                      in_unsigned: bool, inv_h: Optional[float], qmax_h: float,
+                      inv_d: Optional[float], qmax_d: float) -> torch.Tensor:
+    """Expand and depthwise of K4's plain version: the depthwise output as
+    the projection reads it (rounded to bf16, exact on a grid), float32
+    ``(pixels, Ch)``."""
+    _, h, wd, _ = xc.shape
+    ho, wo = _out_hw(h, wd, stride)
+    ch = wts["w3"].shape[0]
+    w2f = wts["w2"].float()
+    xf = _decode(xc, in_unsigned)
+    if "w1" in wts:
+        # Integer operands: float64 sums are exact in any order.
+        acc = (xf.double() @ wts["w1"].double()).float()
+        hid = acc * wts["m1"]
+        hid = torch.clamp_min(hid + wts["b1"], 0.0)
+        if inv_h is not None:
+            hid = torch.clamp(torch.round(hid * _f32(inv_h)), 0.0, qmax_h)
+    else:
+        hid = xf
+    # The halo is zeros of the HIDDEN tensor (not of the input: the
+    # expand's bias would make it nonzero).
+    hp = torch.nn.functional.pad(hid, (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros(xc.shape[0], ho, wo, ch, dtype=torch.float32, device=xc.device)
+    for dy, dx, tap in _taps(hp, ho, wo, stride):
+        acc = acc + tap * w2f[dy, dx]
+    y = acc * wts["m2"]
+    y = torch.clamp_min(y + wts["b2"], 0.0)
+    if inv_d is not None:
+        y = torch.clamp(torch.round(y * _f32(inv_d)), 0.0, qmax_d)
+    return y.to(torch.bfloat16).float().reshape(-1, ch)
+
+
+def _mbconv_finish(p: torch.Tensor, xc: torch.Tensor, wts: Dict[str, torch.Tensor],
+                   use_residual: bool, inv_sh: float, qmax_sh: float,
+                   ratio_out: Optional[float], qmin_o: float, qmax_o: float) -> torch.Tensor:
+    """K4's epilogue on the projection's float32 sums ``p (pixels, Cout)``."""
+    cout = p.shape[1]
+    pf = p * wts["m3"]
+    pf = (pf + wts["b3"]).view(xc.shape[0], -1, cout)
+    if not use_residual:
+        out = torch.clamp(torch.round(pf * _f32(ratio_out)), qmin_o, qmax_o)
+        return out.to(torch.int8)
+    # Exact shared-grid sum; never clamped to int8 before the residual.
+    q = torch.clamp(torch.round(pf * _f32(inv_sh)), -qmax_sh - 1.0, qmax_sh)
+    s = q + xc.float().view(xc.shape[0], -1, cout)
+    if ratio_out is None:
+        return torch.clamp(s, -128.0, 127.0).to(torch.int8)
+    return torch.clamp(torch.round(s * _f32(ratio_out)), qmin_o, qmax_o).to(torch.int8)
+
 
 def fused_mbconv_plain(
     x: torch.Tensor,  # (B, H, W, Cin) int8 values, or uint8 bits (in_unsigned)
@@ -191,48 +267,85 @@ def fused_mbconv_plain(
     _, h, wd, _ = x.shape
     ho, wo = _out_hw(h, wd, stride)
     ch, cout = wts["w3"].shape
-    w2f, w3f = wts["w2"].float(), wts["w3"].float()
+    w3f = wts["w3"].float()
 
     def run(xc: torch.Tensor) -> torch.Tensor:
-        xf = _decode(xc, in_unsigned)
-        if "w1" in wts:
-            # Integer operands: float64 sums are exact in any order.
-            acc = (xf.double() @ wts["w1"].double()).float()
-            hid = acc * wts["m1"]
-            hid = torch.clamp_min(hid + wts["b1"], 0.0)
-            if inv_h is not None:
-                hid = torch.clamp(torch.round(hid * _f32(inv_h)), 0.0, qmax_h)
-        else:
-            hid = xf
-        # The halo is zeros of the HIDDEN tensor (not of the input: the
-        # expand's bias would make it nonzero).
-        hp = torch.nn.functional.pad(hid, (0, 0, 1, 1, 1, 1))
-        acc = torch.zeros(xc.shape[0], ho, wo, ch, dtype=torch.float32, device=xc.device)
-        for dy, dx, tap in _taps(hp, ho, wo, stride):
-            acc = acc + tap * w2f[dy, dx]
-        y = acc * wts["m2"]
-        y = torch.clamp_min(y + wts["b2"], 0.0)
-        if inv_d is not None:
-            y = torch.clamp(torch.round(y * _f32(inv_d)), 0.0, qmax_d)
+        yb = _mbconv_depthwise(xc, wts, stride, in_unsigned, inv_h, qmax_h, inv_d, qmax_d)
         # bf16 x int8 products are exact in f32, so this in-place chain sums
         # them in k order with one rounding a step, fused or not.
-        yb = y.to(torch.bfloat16).float().reshape(-1, ch).t().contiguous()
+        yb = yb.t().contiguous()
         p = torch.zeros(yb.shape[1], cout, dtype=torch.float32, device=xc.device)
         for k in range(ch):
             p.addcmul_(yb[k].unsqueeze(1), w3f[k])
-        pf = p * wts["m3"]
-        pf = (pf + wts["b3"]).view(xc.shape[0], ho, wo, cout)
-        if not use_residual:
-            return torch.clamp(torch.round(pf * _f32(ratio_out)), qmin_o, qmax_o).to(torch.int8)
-        # Exact shared-grid sum; never clamped to int8 before the residual.
-        q = torch.clamp(torch.round(pf * _f32(inv_sh)), -qmax_sh - 1.0, qmax_sh)
-        s = q + xc.float()
-        if ratio_out is None:
-            return torch.clamp(s, -128.0, 127.0).to(torch.int8)
-        return torch.clamp(torch.round(s * _f32(ratio_out)), qmin_o, qmax_o).to(torch.int8)
+        out = _mbconv_finish(p, xc, wts, use_residual, inv_sh, qmax_sh, ratio_out, qmin_o, qmax_o)
+        return out.view(xc.shape[0], ho, wo, cout)
 
     _check_mbconv(x, wts, stride, in_unsigned, use_residual, ratio_out)
     return _by_image_chunks(run, x, 2 * h * wd * ch)
+
+
+def fused_mbconv_rounding_input(
+    x: torch.Tensor, wts: Dict[str, torch.Tensor], stride: int = 1, in_unsigned: bool = False,
+    inv_h: Optional[float] = None, qmax_h: float = 127.0, inv_d: Optional[float] = None,
+    qmax_d: float = 127.0, use_residual: bool = False, inv_sh: float = 1.0,
+    qmax_sh: float = 127.0, ratio_out: Optional[float] = 1.0, qmin_o: float = -128.0,
+    qmax_o: float = 127.0,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The value K4 rounds last, and how far a projection summed in another
+    order may be from it: ``(v, eps, step)``, ``v`` and ``eps`` float64
+    ``(B, Ho, Wo, Cout)``.
+
+    ``v`` is ``pf * ratio_out`` (``pf * inv_sh`` with a residual), with the
+    projection's sum taken in float64 from the same bf16 depthwise output
+    and rounded once to float32, then the epilogue in float32 as the kernel
+    does it.  A float32 sum of ``Ch`` exact products in any order is within
+    ``Ch * 2^-24 * sum_k |y_k * w3_k|`` of it; ``eps`` doubles that (a tensor
+    core truncates where an adder rounds), scales it by ``|m3 * scale|``,
+    and adds ``8 * 2^-24 * |v|`` for the three float32 roundings after the
+    sum, which a changed sum may flip.
+
+    A kernel output may differ from :func:`fused_mbconv_plain`'s only where
+    ``|v - (floor(v) + 0.5)| <= eps`` (:func:`tie_mismatches`), and there by
+    at most ``step`` int8 steps.  ``step`` is 1 in every case but one: with
+    a residual, the value rounded at the tie is the projection on the shared
+    grid, and the sum it joins is requantized by ``ratio_out`` afterwards,
+    so one shared-grid step becomes up to ``ceil(ratio_out)`` output steps
+    where ``ratio_out`` is above 1 (2 at a ratio of 1.25).  No block of the
+    flagship graph has such a ratio.
+    """
+    _check_mbconv(x, wts, stride, in_unsigned, use_residual, ratio_out)
+    _, h, wd, _ = x.shape
+    ho, wo = _out_hw(h, wd, stride)
+    ch, cout = wts["w3"].shape
+    w3d = wts["w3"].double()
+    scale = _f32(inv_sh if use_residual else ratio_out)
+    unit = 2.0 ** -24
+
+    def run(xc: torch.Tensor) -> torch.Tensor:
+        yd = _mbconv_depthwise(xc, wts, stride, in_unsigned, inv_h, qmax_h, inv_d,
+                               qmax_d).double()
+        pf = (yd @ w3d).float() * wts["m3"]
+        v = ((pf + wts["b3"]) * scale).double()
+        eps = (2.0 * ch * unit * abs(scale)) * (yd.abs() @ w3d.abs()) * wts["m3"].double().abs()
+        eps = eps + 8.0 * unit * v.abs()
+        return torch.stack([v, eps]).view(2, xc.shape[0], ho, wo, cout)
+
+    n = max(1, _PLAIN_CHUNK_ELEMS // max(2 * h * wd * ch, 1))
+    both = torch.cat([run(x[i:i + n]) for i in range(0, x.shape[0], n)], dim=1)
+    step = 1 if (not use_residual or ratio_out is None) else max(1, math.ceil(ratio_out))
+    return both[0], both[1], step
+
+
+def tie_mismatches(got: torch.Tensor, want: torch.Tensor, v: torch.Tensor, eps: torch.Tensor,
+                   step: int = 1) -> Tuple[int, int]:
+    """``(mismatches, refused)`` between a kernel output and the plain
+    version's under the tie rule: a mismatch is admitted where it is at most
+    ``step`` and ``v`` is within ``eps`` of a tie; every other is refused."""
+    d = (got.to(torch.int16) - want.to(torch.int16)).abs()
+    mis = d > 0
+    at_tie = (v - (torch.floor(v) + 0.5)).abs() <= eps
+    refused = mis & ((d > step) | ~at_tie)
+    return int(mis.sum()), int(refused.sum())
 
 
 def _check_mbconv(x, wts, stride, in_unsigned, use_residual, ratio_out) -> None:
@@ -266,6 +379,232 @@ def _check_mbconv(x, wts, stride, in_unsigned, use_residual, ratio_out) -> None:
             raise ValueError("fused_mbconv: operands must be contiguous, on one device")
 
 
+# ---- K4's weight layouts -----------------------------------------------------
+
+_CK = 32  # hidden channels a chunk of the kernel; the int8 mma depth
+_K_DEPTH = 32  # Cin is padded with zeros to the int8 mma depth
+_N_TILE = 8  # Cout is padded to the mma's 8 columns
+_ROW_PAD = 16  # bytes added in shared memory to a row ldmatrix reads
+
+
+def _round_up(n: int, m: int) -> int:
+    return (n + m - 1) // m * m
+
+
+def _mbconv_layouts(wts: Dict[str, torch.Tensor], dw_grid: bool) -> Dict[str, torch.Tensor]:
+    """The pieces of the kernel's weight blob, before they are laid side by
+    side.  ``w1p`` (with an expand): ``w1`` transposed to ``(Ch, Cin)`` int8,
+    K = Cin innermost, Ch padded with zeros to the chunk (32) and Cin to the
+    int8 mma depth (32).  ``w3p``: ``w3`` as ``(chunks, Cout, 32)``, the
+    chunk's k innermost, Cout padded to 8 and Ch to the chunk; bf16 (int8
+    values are exact in bf16) for a real-valued depthwise output, int8 where
+    it is on a grid (``dw_grid``).  ``aux``: ``(chunks, 13, 32)`` float32, a
+    chunk's ``m1``, ``b1``, ``m2``, ``b2`` and the nine taps of ``w2`` (as
+    float32), zeros past Ch.  ``aux3``: ``(2, Cout padded to 8)`` float32,
+    ``m3`` and ``b3``."""
+    w3 = wts["w3"]
+    ch, cout = w3.shape
+    chp, coutp = _round_up(ch, _CK), _round_up(cout, _N_TILE)
+    out = {}
+    if "w1" in wts:
+        cin = wts["w1"].shape[0]
+        w1p = torch.zeros(chp, _round_up(cin, _K_DEPTH), dtype=torch.int8, device=w3.device)
+        w1p[:ch, :cin] = wts["w1"].t()
+        out["w1p"] = w1p
+    w3z = torch.zeros(chp, coutp, dtype=torch.int8, device=w3.device)
+    w3z[:ch, :cout] = w3
+    w3p = w3z.view(chp // _CK, _CK, coutp).permute(0, 2, 1).contiguous()
+    out["w3p"] = w3p if dw_grid else w3p.to(torch.bfloat16)
+    aux = torch.zeros(13, chp, dtype=torch.float32, device=w3.device)
+    if "w1" in wts:
+        aux[0, :ch], aux[1, :ch] = wts["m1"], wts["b1"]
+    aux[2, :ch], aux[3, :ch] = wts["m2"], wts["b2"]
+    aux[4:, :ch] = wts["w2"].reshape(9, ch).float()
+    out["aux"] = aux.view(13, chp // _CK, _CK).permute(1, 0, 2).contiguous()
+    aux3 = torch.zeros(2, coutp, dtype=torch.float32, device=w3.device)
+    aux3[0, :cout], aux3[1, :cout] = wts["m3"], wts["b3"]
+    out["aux3"] = aux3
+    return out
+
+
+def _mbconv_blob_sizes(wts: Dict[str, torch.Tensor], dw_grid: bool) -> Tuple[int, int, int]:
+    """Bytes a chunk of the weight blob gives to its ``w1`` rows, its ``w3``
+    rows and its small operands."""
+    kpad = _round_up(wts["w1"].shape[0], _K_DEPTH) if "w1" in wts else 0
+    coutp = _round_up(wts["w3"].shape[1], _N_TILE)
+    w3_row = (_CK if dw_grid else 2 * _CK) + _ROW_PAD
+    return (_CK * (kpad + _ROW_PAD) if "w1" in wts else 0), coutp * w3_row, 13 * _CK * 4
+
+
+def pack_mbconv_weights(wts: Dict[str, torch.Tensor], dw_grid: bool = False
+                        ) -> Dict[str, torch.Tensor]:
+    """``wts`` plus the two tensors the kernel reads.
+
+    ``wblob``: ``(chunks, bytes)`` uint8: a chunk's 32 rows of ``w1`` (K =
+    Cin innermost, padded with zeros to the int8 mma depth), its Cout rows
+    of ``w3`` (the chunk's 32 k innermost; bf16, or int8 with ``dw_grid``)
+    and its small operands (:func:`_mbconv_layouts`), one after the other,
+    every weight row followed by the 16 bytes of padding it has in shared
+    memory, so that a chunk arrives as one run of 16-byte copies.
+    ``aux3``: ``m3`` and ``b3``.  Plain PyTorch, any device; done once when
+    a forward is built, or by :func:`fused_mbconv` for a caller that passes
+    unpacked weights.
+    """
+    lay = _mbconv_layouts(wts, dw_grid)
+    chunks = lay["aux"].shape[0]
+
+    def padded_rows(t: torch.Tensor) -> torch.Tensor:
+        width = t.shape[-1] * t.element_size()
+        rows = t.contiguous().view(torch.uint8).reshape(chunks, -1, width)
+        return torch.nn.functional.pad(rows, (0, _ROW_PAD)).flatten(1)
+
+    parts = [padded_rows(lay["w1p"])] if "w1" in wts else []
+    parts += [padded_rows(lay["w3p"]), lay["aux"].view(torch.uint8).flatten(1)]
+    wblob = torch.cat(parts, dim=1).contiguous()
+    assert wblob.shape[1] == sum(_mbconv_blob_sizes(wts, dw_grid))
+    return dict(wts, wblob=wblob, aux3=lay["aux3"])
+
+
+def unpack_mbconv_weights(packed: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``w1`` / ``w3`` (int8) read back from ``wblob``: the inverse of
+    :func:`pack_mbconv_weights` on those keys."""
+    blob = packed["wblob"]
+    ch, cout = packed["w3"].shape
+    dw_grid = blob.shape[1] == sum(_mbconv_blob_sizes(packed, True))
+    sizes = _mbconv_blob_sizes(packed, dw_grid)
+    b1, b3, _ = blob.split(sizes, dim=1)
+    row = (_CK if dw_grid else 2 * _CK)
+    w3p = b3.reshape(blob.shape[0], -1, row + _ROW_PAD)[..., :row].contiguous()
+    w3p = w3p.view(torch.int8 if dw_grid else torch.bfloat16)
+    out = {"w3": w3p.permute(0, 2, 1).reshape(-1, w3p.shape[1])[:ch, :cout].to(torch.int8)}
+    if "w1" in packed:
+        cin = packed["w1"].shape[0]
+        w1p = b1.reshape(blob.shape[0] * _CK, -1)[:, :-_ROW_PAD].view(torch.int8)
+        out["w1"] = w1p[:ch, :cin].t().contiguous()
+    return out
+
+
+# ---- K4's tile choice ----------------------------------------------------------
+
+MBCONV_SMEM_MAX = 232448  # 227 KB: the most a block may use
+_SM_COUNT = 132
+_SM_SMEM = 233472  # 228 KB an SM, 1 KB reserved a block
+_WARPS = 8
+_HS = _CK + 8  # floats a row of the hidden chunk
+# (MI, NI) accumulator tiles a warp of each instantiation, and the blocks an
+# SM that its registers allow.
+_MB_VARIANTS = ((1, 4, 2), (2, 4, 2), (2, 6, 2), (3, 10, 1))
+_TILE_SIZES = (1, 2, 3, 4, 5, 6, 8, 10, 12, 15, 16, 20, 24, 30, 32)
+
+
+def mbconv_warp_grid(pixels: int, cout: int) -> Optional[Tuple[int, int, int, int, int]]:
+    """``(mi, ni, wm, wn, blocks an SM)`` of the projection for a tile of
+    ``pixels`` outputs: the first instantiation whose ``wm x wn`` warps with
+    ``mi x ni`` accumulator tiles each cover ``(pixels / 16, Cout / 8)``;
+    None if no instantiation does.  Mirrors ``warp_grid`` in the source."""
+    mtiles, ntiles = -(-pixels // 16), _round_up(cout, _N_TILE) // _N_TILE
+    for mi, ni, resident in _MB_VARIANTS:
+        wn = 1
+        while wn * ni < ntiles:
+            wn *= 2
+        if wn <= _WARPS and mtiles <= (_WARPS // wn) * mi:
+            return mi, ni, _WARPS // wn, wn, resident
+    return None
+
+
+def mbconv_smem_bytes(th: int, tw: int, cin: int, cout: int, stride: int, expand: bool = True,
+                      dw_grid: bool = False, residual: bool = False) -> int:
+    """Shared memory one block of K4 needs for a ``th x tw`` output tile (two
+    input tiles with a residual: the epilogue reads one while the next
+    arrives).  Mirrors ``layout`` in the source."""
+    ph = ((th - 1) * stride + 3) * ((tw - 1) * stride + 3)
+    xs_stride = _round_up(cin, _K_DEPTH) + _ROW_PAD
+    row = (_CK if dw_grid else 2 * _CK) + _ROW_PAD
+    xs = _round_up(ph * xs_stride, 16) * (2 if residual else 1)
+    w1s = 2 * _CK * xs_stride if expand else 0
+    coutp = _round_up(cout, _N_TILE)
+    # The depthwise may read two pixels past the hidden chunk; the finished
+    # tile's int8 staging rows lie over it.
+    hid = max(_round_up((ph + 2) * _HS * 4, 16), _round_up(th * tw * coutp, 16))
+    dwo = -(-th * tw // 16) * 16 * row
+    w3s = 2 * coutp * row
+    aux = 2 * 13 * _CK * 4 + coutp * 8
+    return xs + w1s + hid + dwo + w3s + aux
+
+
+def _mbconv_tile_cost(batch, ho, wo, cin, ch, cout, stride, expand, dw_grid, residual, th, tw
+                      ) -> Optional[float]:
+    """Scheduler slots one launch spends with this tile, in the kernel's units:
+    mma tiles of 16 pixels for the two products, the nine taps along the
+    pieces of rows its warps walk, two barriers a chunk, and the blocks a
+    wave on the SMs.  None if the tile does not fit.
+
+    The weights below (slots an mma, an ldmatrix, a barrier, a depthwise
+    column, a block's fixed cost, the share one block alone loses to
+    latency) are fitted: to this kernel's timings over its candidate tiles
+    at the flagship's 17 block shapes, batch 256, on an H100.  They rank
+    tiles; they are no prediction of time, and a measured per-shape table
+    is what should replace them."""
+    grid = mbconv_warp_grid(th * tw, cout)
+    smem = mbconv_smem_bytes(th, tw, cin, cout, stride, expand, dw_grid, residual)
+    if grid is None or smem > MBCONV_SMEM_MAX:
+        return None
+    mi, ni, wm, wn, resident = grid
+    mma, ldm, barrier = 6.0, 8.0, 60.0
+    ph = ((th - 1) * stride + 3) * ((tw - 1) * stride + 3)
+    kpad, coutp = _round_up(cin, _K_DEPTH), _round_up(cout, _N_TILE)
+    nchunks = -(-ch // _CK)
+    if expand:
+        rounds = -(-(-(-ph // 16)) // _WARPS)
+        hidden = rounds * (kpad // 32 * (4 * mma + 3 * ldm) + 16 * 12.0)
+    else:
+        hidden = -(-ph // _WARPS) * 6.0
+    # The depthwise walks groups of rows (four at stride 1 where every warp
+    # still gets a piece and the accumulators leave registers for the larger
+    # patch, else two) and two columns at a time.
+    for rows in (4, 2):
+        groups = -(-th // rows)
+        nseg = 1 if groups >= _WARPS else min((tw + 1) // 2, -(-_WARPS // groups))
+        seg = (-(-tw // nseg) + 1) // 2 * 2
+        nseg = -(-tw // seg)
+        if stride == 1 and mi * ni <= 8 and groups * nseg >= _WARPS:
+            break
+    per_column = 62.0 if stride == 2 else (56.0 if rows == 2 else 112.0)
+    taps = -(-groups * nseg // _WARPS) * (seg * per_column + 30.0) + 15.0
+    mi_used = -(-(-(-th * tw // 16)) // wm)
+    ni_used = min(ni, -(-coutp // 8 // wn) if wn > 1 else coutp // 8)
+    project = mi_used * (2 * ldm + ni_used * (ldm + 2 * mma))
+    copies = (_CK * kpad * expand + coutp * 2 * _CK) / 16.0 / 256.0 * 6.0
+    block = nchunks * (hidden + taps + project + copies + 2 * barrier)
+    block += ph * kpad / 16.0 / 256.0 * 10.0 + mi_used * ni_used * 50.0 + 300.0
+    resident = max(1, min(resident, _SM_SMEM // (smem + 1024)))
+    blocks = batch * (-(-ho // th)) * (-(-wo // tw))
+    waves = -(-blocks // (_SM_COUNT * resident))
+    # Two blocks an SM share its scheduler slots but hide each other's latency;
+    # one block alone loses about a third to it.
+    return waves * block * resident / min(1.0, 0.5 + 0.5 * resident * _WARPS / 16.0)
+
+
+@functools.lru_cache(maxsize=None)
+def choose_mbconv_tile(batch: int, h: int, w: int, cin: int, ch: int, cout: int, stride: int,
+                       expand: bool = True, dw_grid: bool = False, residual: bool = False
+                       ) -> Tuple[int, int]:
+    """The output tile ``(th, tw)`` K4 runs one block on: the cheapest, by
+    the cost model above, among those whose shared memory and accumulator
+    registers fit.  Raises if no tile fits (Cout above 640)."""
+    ho, wo = _out_hw(h, w, stride)
+    best, best_cost = None, None
+    for th in sorted({min(s, ho) for s in _TILE_SIZES}):
+        for tw in sorted({min(s, wo) for s in _TILE_SIZES}):
+            cost = _mbconv_tile_cost(batch, ho, wo, cin, ch, cout, stride, expand, dw_grid,
+                                     residual, th, tw)
+            if cost is not None and (best_cost is None or cost < best_cost):
+                best, best_cost = (th, tw), cost
+    if best is None:
+        raise ValueError(f"fused_mbconv: no tile fits Cin {cin}, Ch {ch}, Cout {cout}")
+    return best
+
+
 def fused_mbconv(
     x: torch.Tensor,
     wts: Dict[str, torch.Tensor],
@@ -288,7 +627,9 @@ def fused_mbconv(
     grid.  Three output cases: no residual, ``clip(rint(pf * ratio_out))``;
     residual, the projection goes to the shared grid, the int8 input is
     added exactly, and the sum is requantized by ``ratio_out`` — or only
-    clipped to int8 when ``ratio_out`` is None (same step).
+    clipped to int8 when ``ratio_out`` is None (same step).  ``wts`` may be
+    packed already (:func:`pack_mbconv_weights`, with ``dw_grid`` set as
+    ``inv_d`` is); unpacked weights are packed here, on every call.
     """
     kw = dict(stride=stride, in_unsigned=in_unsigned, inv_h=inv_h, qmax_h=qmax_h, inv_d=inv_d,
               qmax_d=qmax_d, use_residual=use_residual, inv_sh=inv_sh, qmax_sh=qmax_sh,
@@ -298,25 +639,29 @@ def fused_mbconv(
     if x.device.type != "cuda":
         raise ValueError(f"fused_mbconv: unsupported device {x.device}")
     _check_mbconv(x, wts, stride, in_unsigned, use_residual, ratio_out)
+    dw_grid = inv_d is not None
+    if "wblob" not in wts:
+        wts = pack_mbconv_weights(wts, dw_grid)
+    if wts["wblob"].shape[1] != sum(_mbconv_blob_sizes(wts, dw_grid)):
+        raise ValueError("fused_mbconv: the weights were packed for the other projection "
+                         "(int8 w3 with a depthwise grid, bf16 without)")
     b, h, wd, cin = x.shape
     ch, cout = wts["w3"].shape
     ho, wo = _out_hw(h, wd, stride)
-    out = torch.empty(b, ho, wo, cout, dtype=torch.int8, device=x.device)
     expand = "w1" in wts
+    th, tw = choose_mbconv_tile(b, h, wd, cin, ch, cout, stride, expand, dw_grid, use_residual)
+    out = torch.empty(b, ho, wo, cout, dtype=torch.int8, device=x.device)
     out_mode = 0 if not use_residual else (2 if ratio_out is None else 1)
     lib = _build.load_library("fused_mbconv")
     fn = lib.spef_fused_mbconv
     fn.argtypes, fn.restype = _MBCONV_ARGTYPES, _I
-    ptr = lambda name: wts[name].data_ptr()  # noqa: E731
-    code = fn(x.data_ptr(), int(in_unsigned),
-              ptr("w1") if expand else None, ptr("m1") if expand else None,
-              ptr("b1") if expand else None,
-              ptr("w2"), ptr("m2"), ptr("b2"), ptr("w3"), ptr("m3"), ptr("b3"), out.data_ptr(),
-              b, h, wd, cin, ch, cout, stride,
+    code = fn(x.data_ptr(), int(in_unsigned), wts["wblob"].data_ptr(), wts["aux3"].data_ptr(),
+              out.data_ptr(),
+              b, h, wd, cin, ch, cout, stride, int(expand),
               int(inv_h is not None), 1.0 if inv_h is None else inv_h, qmax_h,
-              int(inv_d is not None), 1.0 if inv_d is None else inv_d, qmax_d,
+              int(dw_grid), 1.0 if inv_d is None else inv_d, qmax_d,
               out_mode, inv_sh, qmax_sh, 1.0 if ratio_out is None else ratio_out, qmin_o, qmax_o,
-              torch.cuda.current_stream(x.device).cuda_stream)
+              th, tw, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "fused_mbconv")
     fused_mbconv.launches += 1
     return out

@@ -23,7 +23,8 @@ integer pixels with 1/255 folded into the multiplier where the chain
 convolves pixels / 255 rounded to bf16.  Each follows its own JAX twin.
 
 The whole graph is planned once (folded multipliers, kernel arguments,
-device-resident weights); ``forward`` only launches.
+device-resident weights, K4's packed weight layouts); ``forward`` only
+launches.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from spef_tpu_torch.ops.fused_block import (
     fused_mbconv_plain,
     fused_stem,
     fused_stem_plain,
+    pack_mbconv_weights,
 )
 from spef_tpu_torch.ops.int8_ops import int8_matmul_requant, int8_matmul_requant_plain
 from spef_tpu_torch.quant.int8_graph import (
@@ -180,6 +182,9 @@ def build_fused_forward(
         shared = (grid_params(blk["shared_step"], blk["shared_qmax"])
                   if "shared_step" in blk else None)
         bp["wts"], bp["kw"] = mbconv_operands(blk, step, out_grid, shared, unsigned, tensor)
+        if backend == "cuda":
+            # The kernel's weight layouts, once a build and not once a call.
+            bp["wts"] = pack_mbconv_weights(bp["wts"], dw_grid=bp["kw"]["inv_d"] is not None)
         # ratio_out None: the residual sum stayed on the block's shared grid.
         step = blk["shared_step"] if bp["kw"]["ratio_out"] is None else out_grid["step"]
         unsigned = False  # blocks emit on signed consumer grids

@@ -5,9 +5,15 @@ test run); on a GPU host run them with
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 The kernels build from ``spef_tpu_torch/csrc`` with ``nvcc`` on first use.
-Int8 outputs must agree bit for bit; so must bf16 / f32 outputs, since the
-kernels sum in the plain versions' order and never fuse a multiply-add whose
-product is inexact.
+K1, K2 and K3 must agree with their plain versions bit for bit, int8, bf16
+and f32 outputs alike: they sum in the plain versions' order and never fuse a
+multiply-add whose product is inexact.  So must K4 wherever its depthwise
+output is on a grid (every sum is an integer sum) or its sums are exact.
+With a real-valued depthwise output K4's projection runs on the bf16 tensor
+cores, which sum in their own order: an output may then differ by one int8
+step, only where the value rounded last sits on a tie
+(``fused_mbconv_rounding_input`` / ``tie_mismatches``), and on at most 0.5%
+of the outputs.
 """
 
 import os
@@ -22,8 +28,11 @@ from chip_smoke import random_mbconv_operands  # noqa: E402 - the repo root's sm
 from spef_tpu_torch.ops.fused_block import (  # noqa: E402
     fused_mbconv,
     fused_mbconv_plain,
+    fused_mbconv_rounding_input,
     fused_stem,
     fused_stem_plain,
+    pack_mbconv_weights,
+    tie_mismatches,
 )
 from spef_tpu_torch.ops.int8_ops import (  # noqa: E402
     int8_depthwise3x3,
@@ -94,7 +103,14 @@ DW_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(DW_CASES))
-@pytest.mark.parametrize("shape", [(2, 120, 192, 32), (3, 15, 24, 960), (1, 7, 5, 3)])
+@pytest.mark.parametrize("shape", [
+    (2, 120, 192, 32), (3, 15, 24, 960), (1, 7, 5, 3),
+    (2, 60, 96, 144),  # 16-byte loads of float32, 4 channels a thread
+    (2, 9, 11, 24),    # int8: 8-byte access is possible, 16-byte is not
+    (2, 6, 5, 32),     # narrower than a strip
+    (3, 15, 23, 96),   # odd height and width (stride 2: 8 x 12 out)
+    (2, 13, 20, 20),   # float32 by fours, int8 one channel a thread
+])
 def test_k2_kernel_matches_plain(dev, case, shape):
     stride, dtype, kw = DW_CASES[case]
     kw = {"in_step": 0.05, **kw}
@@ -158,6 +174,12 @@ K4_CASES = {
     "dw_grid_only_s2": ((2, 15, 24, 64), 384, 96, 2, False, dict(dw_grid=True)),
     "no_expand_dw_grid_s2": ((2, 16, 12, 32), 32, 24, 2, False,
                              dict(expand=False, dw_grid=True)),
+    # Cin 24 padded to the mma depth (block 3), and a tile with a partial chunk (Ch 144)
+    "b3_s2_cin24": ((2, 60, 96, 24), 144, 32, 2, False, dict()),
+    # every product and partial sum exact: no summation order can show
+    "exact_sums_s1_residual": ((2, 30, 48, 32), 64, 32, 1, False,
+                               dict(exact=True, residual="ratio")),
+    "exact_sums_s2": ((2, 15, 24, 32), 64, 32, 2, False, dict(exact=True)),
     # channel counts off a multiple of 4: the byte-wise loads and stores
     "odd_channels_s1_residual": ((2, 7, 5, 6), 10, 6, 1, False, dict(residual="ratio")),
     "odd_channels_s2_in_unsigned": ((2, 7, 5, 6), 10, 7, 2, True, dict(hidden_grid=True)),
@@ -165,11 +187,25 @@ K4_CASES = {
 }
 
 
+def _k4_same(got, x, wts, kw, exact=False):
+    """K4's contract: bit for bit with a depthwise grid or exact sums, else
+    only mismatches the tie rule admits, on at most 0.5% of the outputs."""
+    want = fused_mbconv_plain(x, wts, **kw)
+    if kw.get("inv_d") is not None or exact:
+        _same(got, want)
+        return
+    assert got.dtype == want.dtype and got.shape == want.shape
+    v, eps, step = fused_mbconv_rounding_input(x, wts, **kw)
+    mismatches, refused = tie_mismatches(got, want, v, eps, step)
+    assert refused == 0, (mismatches, refused)
+    assert mismatches <= 0.005 * got.numel(), mismatches
+
+
 @pytest.mark.parametrize("case", sorted(K4_CASES))
 def test_k4_kernel_matches_plain(dev, case):
     shape, ch, cout, stride, unsigned, kwargs = K4_CASES[case]
     g = torch.Generator().manual_seed(sum(shape) + ch)
-    lo, hi = (-128, 128) if unsigned else (-64, 64)
+    lo, hi = (-8, 8) if kwargs.get("exact") else ((-128, 128) if unsigned else (-64, 64))
     x = torch.randint(lo, hi, shape, generator=g).to(torch.int8).to(dev)
     wts, kw = random_mbconv_operands(g, shape[-1], ch, cout, **kwargs)
     wts = {k: v.to(dev) for k, v in wts.items()}
@@ -178,8 +214,62 @@ def test_k4_kernel_matches_plain(dev, case):
     got = fused_mbconv(x, wts, **kw)
     torch.cuda.synchronize()
     assert fused_mbconv.launches == before + 1
-    _same(got, fused_mbconv_plain(x, wts, **kw))
+    _k4_same(got, x, wts, kw, exact=bool(kwargs.get("exact")))
     assert got.unique().numel() > 16
+    # Weights packed ahead, as a built forward holds them, give the same bits.
+    packed = pack_mbconv_weights(wts, dw_grid=kw["inv_d"] is not None)
+    _same(fused_mbconv(x, packed, **kw), got)
+    with pytest.raises(ValueError):  # packed for the other projection
+        fused_mbconv(x, pack_mbconv_weights(wts, dw_grid=kw["inv_d"] is None), **kw)
+
+
+def test_k4_python_tile_model_mirrors_the_kernel_launcher(dev):
+    """``mbconv_warp_grid`` and ``mbconv_smem_bytes`` repeat ``warp_grid`` and
+    ``layout`` of ``csrc/fused_mbconv.cu``: for every candidate tile of the
+    flagship's block shapes and some odd ones both sides agree on whether
+    the tile runs, on the warp grid and on the shared memory, and the tile
+    the cost model chooses is one the launcher takes."""
+    import ctypes
+
+    from spef_tpu_torch.ops import _build, fused_block
+
+    lib = _build.load_library("fused_mbconv")
+    fn = lib.spef_fused_mbconv_layout
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_longlong
+    shapes = [  # (Ho, Wo, Cin, Ch, Cout, stride, expand) as the tile choice sees them
+        (120, 192, 32, 32, 16, 1, False), (60, 96, 16, 96, 24, 2, True),
+        (60, 96, 24, 144, 24, 1, True), (30, 48, 24, 144, 32, 2, True),
+        (30, 48, 32, 192, 32, 1, True), (15, 24, 32, 192, 64, 2, True),
+        (15, 24, 64, 384, 64, 1, True), (15, 24, 64, 384, 96, 1, True),
+        (15, 24, 96, 576, 96, 1, True), (8, 12, 96, 576, 160, 2, True),
+        (8, 12, 160, 960, 160, 1, True), (8, 12, 160, 960, 320, 1, True),
+        (7, 5, 6, 10, 7, 2, True), (5, 9, 5, 5, 3, 1, False), (7, 5, 64, 384, 640, 1, True),
+    ]
+    checked = 0
+    for ho, wo, cin, ch, cout, stride, expand in shapes:
+        residual = stride == 1 and cin == cout
+        for dw_grid in (False, True):
+            for th in sorted({min(s, ho) for s in fused_block._TILE_SIZES}):
+                for tw in sorted({min(s, wo) for s in fused_block._TILE_SIZES}):
+                    grid4 = (ctypes.c_int * 4)()
+                    smem = fn(th, tw, cin, cout, stride, int(expand), int(dw_grid),
+                              int(residual), grid4)
+                    mirror = fused_block.mbconv_warp_grid(th * tw, cout)
+                    if mirror is None:
+                        assert smem == -1, (th, tw, cout)
+                        continue
+                    assert tuple(grid4) == mirror[:4], (th, tw, cout)
+                    assert smem == fused_block.mbconv_smem_bytes(
+                        th, tw, cin, cout, stride, expand, dw_grid, residual), (th, tw, cin, cout)
+                    checked += 1
+            h, w = (ho - 1) * stride + 1, (wo - 1) * stride + 1
+            th, tw = fused_block.choose_mbconv_tile(256, h, w, cin, ch, cout, stride, expand,
+                                                    dw_grid, residual)
+            grid4 = (ctypes.c_int * 4)()
+            smem = fn(th, tw, cin, cout, stride, int(expand), int(dw_grid), int(residual), grid4)
+            assert 0 < smem <= fused_block.MBCONV_SMEM_MAX
+    assert checked > 1000
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -235,8 +325,11 @@ def test_flagship_int8_forward_kernels_match_plain(dev):
 
 def test_flagship_fused_forward_kernels_match_plain(dev):
     """The boundary-recipe flagship graph through the fused executor, batch 4
-    at 240x384: 1 K3, 17 K4 and 1 K1 launch a forward, and the same logits as
-    the plain backend."""
+    at 240x384: 1 K3, 17 K4 and 1 K1 launch a forward.  K4's projection may
+    round a tie the other way (one int8 step of an activation), so the logits
+    are held to the plain backend's within 0.3, the bound between the card
+    and the CPU; each K4 call is held to the tie rule at the input the
+    forward itself gave it."""
     from spef_tpu_torch.quant.int8_fused import build_fused_forward
     from spef_tpu_torch.quant.int8_graph import load_int8_graph
 
@@ -255,4 +348,23 @@ def test_flagship_fused_forward_kernels_match_plain(dev):
     assert [f.launches - n for f, n in zip(counters, before)] == [1, 17, 1]
     want = build_fused_forward(graph, backend="plain", device=dev)(frames)
     for a, b in zip(got, want):
-        _same(a, b)
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert float((a - b).abs().max()) < 0.3
+
+    import spef_tpu_torch.quant.int8_fused as int8_fused
+    calls = []
+
+    def recorder(x, wts, **kw):
+        calls.append((x, wts, kw))
+        return fused_mbconv(x, wts, **kw)
+
+    saved = int8_fused.fused_mbconv
+    int8_fused.fused_mbconv = recorder
+    try:
+        recorded = build_fused_forward(graph, backend="cuda", device=dev)
+    finally:
+        int8_fused.fused_mbconv = saved
+    recorded(frames)
+    assert len(calls) == 17
+    for x, wts, kw in calls:
+        _k4_same(fused_mbconv(x, wts, **kw), x, wts, kw)
