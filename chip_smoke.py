@@ -10,17 +10,21 @@ each printed on its own lines; any failure exits nonzero:
   1. the card (``nvidia-smi`` name and power limit) and the kernel build:
      every ``spef_tpu_torch/csrc/*.cu`` compiled by ``nvcc`` for ``sm_90a``,
      one process per source, all at once;
-  2. every K1 variant and K2 mode, K3 with a signed and a bits output and
-     K4 over its options (no expand, both residual cases, stride 2 at even
-     and odd height, hidden / depthwise grid on and off, uint8-bits input,
-     Cin padded to the mma depth, exact sums), each against its plain
-     PyTorch version at flagship layer shapes.  Mismatches must be 0, but
-     for K4 with a real-valued depthwise output: its tensor-core projection
-     may move an output by one step where the value rounded last sits on a
-     tie (``fused_mbconv_rounding_input``; up to ceil(ratio) steps where a
-     residual sum is requantized by a ratio above 1, which no flagship
-     block does); such mismatches are counted and printed with the largest
-     of them, any other fails;
+  2. every K1 variant (with the flagship's largest expand, block 1's
+     bits -> float32 at M = 5,898,240, and block 0's projection) and K2
+     mode, K3 with a signed and a bits output and K4 over its options (no
+     expand, both residual cases, stride 2 at even and odd height, hidden /
+     depthwise grid on and off, uint8-bits input, Cin padded to the mma
+     depth, exact sums), each against its plain PyTorch version at flagship
+     layer shapes.  Mismatches must be 0 wherever the sums are integers.
+     Where they are not (K1 with bf16 input, K4 with a real-valued
+     depthwise output) the tensor cores' order may move an output by one
+     step where the value rounded last sits on a tie
+     (``int8_matmul_requant_rounding_input``, ``fused_mbconv_rounding_input``;
+     up to ceil(ratio) steps where a residual sum is requantized by a ratio
+     above 1, which no flagship layer does); such mismatches are counted and
+     printed with the largest of them, any other, or a share above
+     ``TIE_SHARE``, fails;
   3. the float flagship (``exp_dspeed_synth``, MobileNetV2 + URSONet,
      240x384) served through ``spef_tpu_torch.apps.serve``: requests of
      256, 37 (padded) and 1 frames; the host-to-device copy and the predict
@@ -29,18 +33,21 @@ each printed on its own lines; any failure exits nonzero:
      the kernels: the launch counters are set to 0 before it is driven and
      must read 34 K1 and 17 K2 launches a forward after it; the copy, the
      predict function and the int8 forward alone timed apart; the kernels'
-     logits must equal the plain backend's on the card, and stay within
-     0.3 of the plain backend on the CPU;
+     logits within 0.3 of the plain backend's on the card (K1's ties at
+     the projections), the distance printed, and within 0.3 of the plain
+     backend on the CPU;
   5. the same int8 graph served by the fused executor
      (``--int8-executor fused``): counters to 0, then 1 K3, 17 K4 and 1 K1
      launch a forward; the copy, the predict function and the fused forward
      alone timed apart; logits within 0.3 of the plain backend's on the card
      (K4's tie rule), the distance printed; the distance of its logits and
      poses from the layer executor's printed;
-  6. each kernel at its path's own inputs (batch 256): mismatches (K4 under
-     its tie rule), kernel / plain / library time (CUDA events) and its
-     bound, printed as one ``{"kernels": [...]}`` JSON line of four entries;
-     K1's one call on the fused path (the head conv) is timed apart;
+  6. each kernel at its path's own inputs (batch 256): mismatches (K1's
+     bf16-input calls and K4 under the tie rule, at most one step; any
+     mismatch of an integer-input call fails), kernel / plain / library time
+     (CUDA events) and its bound, printed as one ``{"kernels": [...]}`` JSON
+     line of four entries; K1's one call on the fused path (the head conv)
+     is timed apart;
   7. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, where ``torch.cuda.is_available()`` is
@@ -83,8 +90,9 @@ KERNELS = {
     },
 }
 # Kernels redesigned for Hopper after their first port.
-REDESIGNED = ("int8_depthwise3x3", "fused_mbconv")
-# The most of K4's outputs that may sit on a tie and differ from the plain version.
+REDESIGNED = ("int8_depthwise3x3", "fused_mbconv", "int8_matmul_requant", "fused_stem")
+# The most of a call's outputs that may sit on a tie and differ from the
+# plain version (K1 with bf16 input, K4 with a real-valued depthwise output).
 TIE_SHARE = 0.005
 # What one forward of each executor launches.
 LAYER_LAUNCHES = {"int8_matmul_requant": 34, "int8_depthwise3x3": 17}
@@ -120,6 +128,38 @@ def diff(a, b):
     d = (a.float() - b.float()).abs()
     bits = a.view(torch.uint8) != b.view(torch.uint8) if a.dtype == torch.int8 else a != b
     return int(bits.sum()), float(d.max()) if d.numel() else 0.0
+
+
+def check_mm(a, args, kw):
+    """K1's output ``a`` against its plain version under K1's contract;
+    returns (mismatches, max |a - plain|, steps the rule admits at a tie).
+    Integer inputs sum exactly: 0 mismatches.  bf16 input: an int8 output
+    may differ only where the tie rule admits it, on at most ``TIE_SHARE``
+    of the outputs; a float32 output must lie within the rule's ``eps`` of
+    the plain version's.  Raises on anything else."""
+    from spef_tpu_torch.ops.int8_ops import (
+        int8_matmul_requant_plain, int8_matmul_requant_rounding_input, tie_mismatches)
+    import torch
+
+    b = int8_matmul_requant_plain(*args, **kw)
+    mis, err = diff(a, b)
+    if args[0].dtype != torch.bfloat16:
+        if mis:
+            raise AssertionError(f"int8_matmul_requant: {mis} mismatches with integer input")
+        return 0, err, 0
+    v, eps, step = int8_matmul_requant_rounding_input(*args, **kw)
+    if kw.get("out_inv_step") is None:
+        outside = int(((a.double() - b.double()).abs() > eps).sum())
+        if outside:
+            raise AssertionError(f"int8_matmul_requant: {outside} float32 outputs further than "
+                                 f"eps from the plain version's")
+        return mis, err, 0
+    mis, refused = tie_mismatches(a, b, v, eps, step)
+    if refused or err > step or mis > TIE_SHARE * a.numel():
+        raise AssertionError(f"int8_matmul_requant: {mis} mismatches of {a.numel()} outputs, "
+                             f"{refused} of them not within {step} step(s) at a tie "
+                             f"(max |d| {err})")
+    return mis, err, step
 
 
 def check_mbconv(a, args, kw):
@@ -317,8 +357,7 @@ def phase_card_and_build():
 def phase_variants(torch, dev):
     """Every K1 variant and K2 mode vs plain at flagship layer shapes."""
     from spef_tpu_torch.ops.int8_ops import (
-        int8_depthwise3x3, int8_depthwise3x3_plain, int8_matmul_requant,
-        int8_matmul_requant_plain)
+        int8_depthwise3x3, int8_depthwise3x3_plain, int8_matmul_requant)
 
     g = torch.Generator().manual_seed(0)
     # block 14 expand / project at batch 256: M = 256*8*12, K/N = 160/960.
@@ -330,6 +369,8 @@ def phase_variants(torch, dev):
     w_p = torch.randint(-8, 8, (n, k), generator=g).to(torch.int8)
     vec = lambda size, s: (torch.rand(size, generator=g) * s).to(dev)  # noqa: E731
     res = torch.randint(-7, 8, (m, k), generator=g).to(torch.int8).to(dev)
+    # Blocks 0 and 1 at 120x192: M = 256*120*192.
+    m01 = BATCH * 120 * 192
     cases = {
         "int8_in_int8_out_relu": (ints, w_e, dict(relu=True, out_inv_step=8.0, out_qmax=15.0)),
         "bits_in_bits_out": (bits, w_e, dict(relu=True, out_inv_step=3.0, out_qmax=255.0,
@@ -338,18 +379,31 @@ def phase_variants(torch, dev):
         "bf16_in_int8_out": (real, w_p, dict(relu=False, out_inv_step=2.0, out_qmin=-128.0)),
         "bf16_in_residual": (real, w_p, dict(relu=False, out_inv_step=4.0, out_qmax=7.0,
                                              out_qmin=-8.0, res_ratio=0.75, residual=res)),
+        "bf16_in_f32_out": (real, w_p, dict(relu=True, out_inv_step=None)),
+        # block 1's expand: uint8 bits in, float32 out (the largest K1 call)
+        "block1_expand_bits_in_f32_out": (
+            torch.randint(-128, 128, (m01, 16), generator=g).to(torch.int8),
+            torch.randint(-8, 8, (16, 96), generator=g).to(torch.int8),
+            dict(relu=True, out_inv_step=None, in_unsigned=True)),
+        # block 0's projection: bf16 depthwise output in, int8 out
+        "block0_project_bf16_in": (
+            (torch.rand(m01, 32, generator=g) * 6).to(torch.bfloat16),
+            torch.randint(-8, 8, (32, 16), generator=g).to(torch.int8),
+            dict(relu=False, out_inv_step=2.0, out_qmin=-128.0)),
     }
-    total = 0
-    for name, (x, w, kw) in cases.items():
+    for name in list(cases):
+        x, w, kw = cases.pop(name)
         nn_ = w.shape[1]
         args = (x.to(dev), w.to(dev), vec(nn_, 1e-2), vec(nn_, 0.1))
         a = int8_matmul_requant(*args, **kw)
-        b = int8_matmul_requant_plain(*args, **kw)
         torch.cuda.synchronize()
-        mis, err = diff(a, b)
-        total += mis
-        log(f"[variants] K1 {name} M={m} K={args[0].shape[1]} N={nn_}: "
-            f"{mis} mismatches, max |kernel - plain| {err}")
+        mis, err, step = check_mm(a, args, kw)
+        rule = f"tie rule, {step} step(s) admitted" if step else (
+            "within eps" if x.dtype == torch.bfloat16 else "exact")
+        log(f"[variants] K1 {name} M={x.shape[0]} K={x.shape[1]} N={nn_}: {mis} mismatches "
+            f"({rule}; share {mis / a.numel():.2e}), max |kernel - plain| {err}")
+        del a, args, x
+    total = 0
     dw_cases = {
         # block 13 (stride 2, 576 ch at 15x24) and block 14 (stride 1, 960 ch at 8x12)
         "int8_in_int8_out_s1": ((BATCH, 8, 12, 960), 1, "int8", dict(out_inv_step=6.0)),
@@ -628,10 +682,8 @@ def phase_int8(torch, np, dev, frames, executor):
         mis, err = diff(a, b)
         log(f"[{label}] cuda vs plain on the card, {name} logits {tuple(a.shape)}: "
             f"{mis} mismatches, max |d logit| {err}")
-        if executor == "layer":
-            assert mis == 0, name  # K1 and K2 equal their plain versions bit for bit
-        else:
-            assert err < 0.3, (name, err)  # K4's ties move a few activations by one step
+        # K1's (layer) or K4's (fused) ties move a few activations by one step.
+        assert err < 0.3, (name, err)
     if executor == "fused":
         plain_server, _ = _serve(torch, ["--experiment", FLAGSHIP, "--int8-graph", ASSET,
                                          "--int8-executor", executor, "--int8-backend", "plain",
@@ -728,6 +780,8 @@ def phase_kernels(torch, dev, frames, launches):
         step = 0
         if name == "fused_mbconv":
             mis, err, step = check_mbconv(a, args, kw)
+        elif name == "int8_matmul_requant":
+            mis, err, step = check_mm(a, args, kw)  # raises on an integer-input mismatch
         else:
             mis, err = diff(a, plain(*args, **kw))
         numel = a.numel()
@@ -744,6 +798,9 @@ def phase_kernels(torch, dev, frames, launches):
                 kw["use_residual"])
             extra = (f", tile {tile[0]}x{tile[1]}, mismatching share {mis / numel:.2e}, largest "
                      f"|kernel - plain| {err:g} of {step} step(s) admitted at a tie")
+        elif step:
+            extra = (f", mismatching share {mis / numel:.2e}, largest |kernel - plain| {err:g} "
+                     f"of {step} step(s) admitted at a tie")
         log(f"[kernels] {name} call {i}: in {tuple(args[0].shape)} {args[0].dtype}, "
             f"{mis} mismatches, kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
             f"library {l_ms:.4f} ms, bound {b_ms:.4f} ms ({by}){extra}")
@@ -767,11 +824,12 @@ def phase_kernels(torch, dev, frames, launches):
             f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, library "
             f"({lib_label}) {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms a "
             f"batch-{BATCH} forward ({tot['ms'] / tot['bound_ms']:.1f}x the bound)")
-        if mismatches and name != "fused_mbconv":
+        tied = name in ("fused_mbconv", "int8_matmul_requant")
+        if mismatches and not tied:
             raise AssertionError(f"{name}: {mismatches} kernel/plain mismatches")
-        if name == "fused_mbconv" and (max_step != 1 or max_err > 1):
+        if tied and (max_step > 1 or max_err > 1):
             # No residual ratio of this graph is above 1: one int8 step at a tie, no more.
-            raise AssertionError(f"fused_mbconv: max |kernel - plain| {max_err} with "
+            raise AssertionError(f"{name}: max |kernel - plain| {max_err} with "
                                  f"{max_step} step(s) admitted; the flagship allows one")
         row = {
             "name": name, "route": "cuda", **KERNELS[name],
@@ -781,9 +839,10 @@ def phase_kernels(torch, dev, frames, launches):
             "library_ms": tot["library_ms"], "library": lib_label, "mismatches": mismatches,
             "calls_per_forward": len(recs), "redesigned": name in REDESIGNED,
         }
-        if name == "fused_mbconv":
-            # Every one of them admitted by the tie rule (check_mbconv raises
-            # otherwise); max_abs_err is the largest of them, in int8 steps, and
+        if tied:
+            # Every one of them admitted by the tie rule (check_mbconv and
+            # check_mm raise otherwise, and on any integer-input mismatch);
+            # max_abs_err is the largest of them, in int8 steps, and
             # tie_steps_admitted the most the rule admitted at any call.
             row["tie_mismatches"] = mismatches
             row["tie_steps_admitted"] = max_step
@@ -791,10 +850,8 @@ def phase_kernels(torch, dev, frames, launches):
 
     # K1's head-conv call of the fused path (int8 in, float32 out), apart.
     (args, kw), = head_conv
-    mis, err, k_ms, p_ms, l_ms, b_ms, by, _ = measure("int8_matmul_requant", "fused-path", args,
-                                                      kw)
-    if mis:
-        raise AssertionError(f"int8_matmul_requant on the fused path: {mis} mismatches")
+    # Integer input: check_mm inside measure raises on any mismatch.
+    _, err, k_ms, p_ms, l_ms, b_ms, by, _ = measure("int8_matmul_requant", "fused-path", args, kw)
     for row in rows:
         if row["name"] == "int8_matmul_requant":
             row["fused_path"] = {"calls_per_forward": 1, "ms": k_ms, "plain_ms": p_ms,

@@ -38,7 +38,8 @@ Numerics shared by kernel and plain version (and the JAX kernels):
     sums differ by rounding only, which can move an output by one int8 step
     where the value that is rounded last sits on a tie:
     :func:`fused_mbconv_rounding_input` returns that value and the bound on
-    its error, :func:`tie_mismatches` applies the rule and counts;
+    its error, :func:`tie_mismatches` (shared with K1, in ``int8_ops``)
+    applies the rule and counts;
   * ``y = acc * mult + bias`` is a rounded multiply then a rounded add;
     rounding to a grid is half to even; every scalar is the host's double
     rounded once to float32.
@@ -59,10 +60,10 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from spef_tpu_torch.ops import _build
-from spef_tpu_torch.ops.int8_ops import _decode, _encode_bits, _f32
+from spef_tpu_torch.ops.int8_ops import _decode, _encode_bits, _f32, tie_mismatches
 
 __all__ = [
-    "fused_stem", "fused_stem_plain", "fused_mbconv", "fused_mbconv_plain",
+    "fused_stem", "fused_stem_plain", "pack_stem_weights", "fused_mbconv", "fused_mbconv_plain",
     "pack_mbconv_weights", "unpack_mbconv_weights", "choose_mbconv_tile", "mbconv_smem_bytes",
     "mbconv_warp_grid", "fused_mbconv_rounding_input", "tie_mismatches",
 ]
@@ -108,6 +109,38 @@ def _taps(xp: torch.Tensor, ho: int, wo: int, stride: int):
 # ---------------------------------------------------------------------------
 
 
+_STEM_K = 27  # taps x channels: k = (dy, dx, ci)
+_STEM_K_DEPTH = 32  # padded to the depth of one int8 mma
+
+
+def pack_stem_weights(w: torch.Tensor) -> torch.Tensor:
+    """K3's weights as the tensor cores' B operand reads them: ``w (3, 3, 3,
+    Cout)`` int8 (HWIO) as ``(Cout padded to 8, 32)`` int8, row ``co`` the
+    27 weights in k = (dy, dx, ci) order, zeros from k = 27 and past Cout.
+    Plain PyTorch, any device; done once when a forward is built, or by
+    :func:`fused_stem` for a caller that passes none."""
+    if w.dtype != torch.int8 or w.dim() != 4 or w.shape[:3] != (3, 3, 3):
+        raise ValueError(f"pack_stem_weights: w must be int8 (3, 3, 3, Cout), got {tuple(w.shape)}")
+    cout = w.shape[-1]
+    packed = torch.zeros(_round_up(cout, _N_TILE), _STEM_K_DEPTH, dtype=torch.int8,
+                         device=w.device)
+    packed[:cout, :_STEM_K] = w.reshape(_STEM_K, cout).t()
+    return packed
+
+
+def _stem_sums(img: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K3's integer sums, float64 ``(B, Ho, Wo, Cout)``: integer pixels times
+    integer weights, exact in any order."""
+    _, h, wd, _ = img.shape
+    ho, wo = _out_hw(h, wd, 2)
+    wdbl = w.double()
+    xp = torch.nn.functional.pad(img.double(), (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros(img.shape[0], ho, wo, w.shape[-1], dtype=torch.float64, device=img.device)
+    for dy, dx, tap in _taps(xp, ho, wo, 2):
+        acc += tap @ wdbl[dy, dx]
+    return acc
+
+
 def fused_stem_plain(
     images: torch.Tensor,  # (B, H, W, 3) uint8
     w: torch.Tensor,  # (3, 3, 3, Cout) int8, HWIO
@@ -115,20 +148,15 @@ def fused_stem_plain(
     bias: torch.Tensor,  # (Cout,) f32
     inv_step: float = 1.0,  # 1 / stem activation step
     qmax: float = 127.0,  # > 127: the output is uint8 bits in int8
+    packed: Optional[torch.Tensor] = None,  # the kernel's copy of w; not read here
 ) -> torch.Tensor:
     """Plain PyTorch version of K3 (same arithmetic, any device)."""
     _, h, wd, _ = images.shape
     ho, wo = _out_hw(h, wd, 2)
     cout = w.shape[-1]
-    wdbl = w.double()
 
     def run(img: torch.Tensor) -> torch.Tensor:
-        # Integer pixels times integer weights: float64 sums are exact.
-        xp = torch.nn.functional.pad(img.double(), (0, 0, 1, 1, 1, 1))
-        acc = torch.zeros(img.shape[0], ho, wo, cout, dtype=torch.float64, device=img.device)
-        for dy, dx, tap in _taps(xp, ho, wo, 2):
-            acc += tap @ wdbl[dy, dx]
-        y = acc.float() * mult
+        y = _stem_sums(img, w).float() * mult
         y = torch.clamp_min(y + bias, 0.0)
         q = torch.clamp(torch.round(y * _f32(inv_step)), 0.0, qmax)
         return _encode_bits(q) if qmax > 127.0 else q.to(torch.int8)
@@ -143,14 +171,17 @@ def fused_stem(
     bias: torch.Tensor,
     inv_step: float = 1.0,
     qmax: float = 127.0,
+    packed: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K3: the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
 
     ``(B, H, W, 3)`` uint8 -> ``(B, Ho, Wo, Cout)`` int8 on the stem
-    activation grid (uint8 bits when ``qmax > 127``).
+    activation grid (uint8 bits when ``qmax > 127``).  ``packed`` is
+    :func:`pack_stem_weights` of ``w``, made once by a built forward;
+    without it the weights are packed here, on every call.
     """
     if images.device.type == "cpu":
-        return fused_stem_plain(images, w, mult, bias, inv_step, qmax)
+        return fused_stem_plain(images, w, mult, bias, inv_step, qmax, packed)
     if images.device.type != "cuda":
         raise ValueError(f"fused_stem: unsupported device {images.device}")
     if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
@@ -162,7 +193,14 @@ def fused_stem(
     for name, t in (("mult", mult), ("bias", bias)):
         if t.dtype != torch.float32 or t.shape != (cout,):
             raise ValueError(f"fused_stem: {name} must be float32 ({cout},)")
-    for t in (images, w, mult, bias):
+    if not 0.0 <= qmax <= 255.0:
+        raise ValueError(f"fused_stem: qmax {qmax} is outside [0, 255], which 8 bits hold")
+    if packed is None:
+        packed = pack_stem_weights(w)
+    if packed.dtype != torch.int8 or packed.shape != (_round_up(cout, _N_TILE), _STEM_K_DEPTH):
+        raise ValueError(f"fused_stem: packed weights {packed.dtype} {tuple(packed.shape)} do "
+                         f"not fit Cout {cout} (pack_stem_weights)")
+    for t in (images, w, mult, bias, packed):
         if t.device != images.device or not t.is_contiguous():
             raise ValueError("fused_stem: operands must be contiguous, on one device")
     b, h, wd, _ = images.shape
@@ -171,7 +209,8 @@ def fused_stem(
     lib = _build.load_library("fused_stem")
     fn = lib.spef_fused_stem
     fn.argtypes, fn.restype = _STEM_ARGTYPES, _I
-    code = fn(images.data_ptr(), w.data_ptr(), mult.data_ptr(), bias.data_ptr(), out.data_ptr(),
+    code = fn(images.data_ptr(), packed.data_ptr(), mult.data_ptr(), bias.data_ptr(),
+              out.data_ptr(),
               b, h, wd, cout, inv_step, qmax,
               torch.cuda.current_stream(images.device).cuda_stream)
     _build.check(lib, code, "fused_stem")
@@ -334,18 +373,6 @@ def fused_mbconv_rounding_input(
     both = torch.cat([run(x[i:i + n]) for i in range(0, x.shape[0], n)], dim=1)
     step = 1 if (not use_residual or ratio_out is None) else max(1, math.ceil(ratio_out))
     return both[0], both[1], step
-
-
-def tie_mismatches(got: torch.Tensor, want: torch.Tensor, v: torch.Tensor, eps: torch.Tensor,
-                   step: int = 1) -> Tuple[int, int]:
-    """``(mismatches, refused)`` between a kernel output and the plain
-    version's under the tie rule: a mismatch is admitted where it is at most
-    ``step`` and ``v`` is within ``eps`` of a tie; every other is refused."""
-    d = (got.to(torch.int16) - want.to(torch.int16)).abs()
-    mis = d > 0
-    at_tie = (v - (torch.floor(v) + 0.5)).abs() <= eps
-    refused = mis & ((d > step) | ~at_tie)
-    return int(mis.sum()), int(refused.sum())
 
 
 def _check_mbconv(x, wts, stride, in_unsigned, use_residual, ratio_out) -> None:

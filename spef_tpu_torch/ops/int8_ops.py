@@ -17,16 +17,27 @@ against them on the card.  Each wrapper counts its kernel launches in its
 ``launches`` attribute.
 
 Numerics shared by both versions (and by the JAX kernels): integer sums are
-exact; real-valued (bf16) operands give exact f32 products summed in f32 in a
-fixed order (k = 0..K-1; taps in (dy, dx) order); ``y = acc * mult + bias``
-is a rounded multiply then a rounded add, never a fused multiply-add;
-rounding is half to even.
+exact (K1 sums them on the int8 tensor cores); ``y = acc * mult + bias`` is
+a rounded multiply then a rounded add, never a fused multiply-add; rounding
+is half to even.  Real-valued operands give exact f32 products: K2 sums its
+taps in (dy, dx) order in both versions, bit for bit.  K1's bf16 input runs
+on the bf16 tensor cores, which sum in their own order, as the JAX kernel's
+``jnp.dot(..., preferred_element_type=float32)`` does; the plain version
+sums in k order 0..K-1.  The two sums differ by rounding only, which can move
+an int8 output by one step where the value rounded last sits on a tie:
+:func:`int8_matmul_requant_rounding_input` returns that value and the bound
+on its error, :func:`tie_mismatches` applies the rule and counts.
+
+K1 reads its weights as the tensor cores' B operand wants them,
+``(N, K padded to 32)``, packed once when a forward is built
+(:func:`pack_mm_weights`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +45,8 @@ import torch
 from spef_tpu_torch.ops import _build
 
 __all__ = [
-    "int8_matmul_requant", "int8_matmul_requant_plain",
+    "int8_matmul_requant", "int8_matmul_requant_plain", "pack_mm_weights",
+    "int8_matmul_requant_rounding_input", "tie_mismatches",
     "int8_depthwise3x3", "int8_depthwise3x3_plain",
 ]
 
@@ -42,7 +54,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-_MM_ARGTYPES = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P]
+_MM_ARGTYPES = [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P]
+# K1's weights are padded along K to the depth of one int8 mma (32).
+_MM_K_DEPTH = 32
+# Rows of x the rounding-input helper takes at once (float64 copies).
+_ROUNDING_CHUNK_ELEMS = 1 << 25
 _DW_ARGTYPES = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P]
 
 
@@ -97,9 +113,19 @@ def int8_matmul_requant_plain(
     res_qmin: float = -128.0,
     in_unsigned: bool = False,
     out_bits: bool = False,
+    packed: Optional[Dict[str, torch.Tensor]] = None,  # the kernel's copy; not read here
 ) -> torch.Tensor:
-    """Plain PyTorch version of K1 (same arithmetic, any device)."""
-    acc = _mm_acc_plain(x, w, in_unsigned)
+    """Plain PyTorch version of K1 (same arithmetic, any device; bf16 input
+    summed in k order)."""
+    return _mm_epilogue(_mm_acc_plain(x, w, in_unsigned), mult, bias, residual, relu,
+                        out_inv_step, out_qmax, out_qmin, res_ratio, res_qmax, res_qmin, out_bits)
+
+
+def _mm_epilogue(acc: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor,
+                 residual: Optional[torch.Tensor], relu: bool, out_inv_step: Optional[float],
+                 out_qmax: float, out_qmin: float, res_ratio: float, res_qmax: float,
+                 res_qmin: float, out_bits: bool) -> torch.Tensor:
+    """K1's epilogue on the float32 sums ``acc (M, N)``."""
     y = acc * mult
     y = y + bias
     if residual is not None and out_inv_step is not None:
@@ -114,6 +140,98 @@ def int8_matmul_requant_plain(
         return y
     q = torch.clamp(torch.round(y * _f32(out_inv_step)), out_qmin, out_qmax)
     return _encode_bits(q) if out_bits else q.to(torch.int8)
+
+
+def pack_mm_weights(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """K1's weights as the tensor cores' B operand reads them: ``w (K, N)``
+    int8 transposed to ``(N, K padded to 32)``, zeros past K, as ``"int8"``
+    and as ``"bf16"`` (int8 values are exact in bf16) for bf16 input.  Plain
+    PyTorch, any device; done once when a forward is built, or by
+    :func:`int8_matmul_requant` for a caller that passes none."""
+    if w.dtype != torch.int8 or w.dim() != 2:
+        raise ValueError(f"pack_mm_weights: w must be int8 (K, N), got {w.dtype} {tuple(w.shape)}")
+    k, n = w.shape
+    w8 = torch.zeros(n, -(-k // _MM_K_DEPTH) * _MM_K_DEPTH, dtype=torch.int8, device=w.device)
+    w8[:, :k] = w.t()
+    return {"int8": w8, "bf16": w8.to(torch.bfloat16)}
+
+
+def int8_matmul_requant_rounding_input(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    mult: torch.Tensor,
+    bias: torch.Tensor,
+    residual: Optional[torch.Tensor] = None,
+    relu: bool = True,
+    out_inv_step: Optional[float] = None,
+    out_qmax: float = 127.0,
+    out_qmin: float = 0.0,
+    res_ratio: float = 1.0,
+    res_qmax: float = 127.0,
+    res_qmin: float = -128.0,
+    in_unsigned: bool = False,
+    out_bits: bool = False,
+    packed: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The value K1 rounds last, and how far a sum taken in another order may
+    be from it: ``(v, eps, step)``, ``v`` and ``eps`` float64 ``(M, N)``.
+
+    ``v`` is ``y * out_inv_step`` (``relu(y)`` first without a residual),
+    where ``y = acc * mult + bias`` with the sum ``acc`` taken in float64 and
+    rounded once to float32, then the epilogue in float32 as the kernel does
+    it.  A float32 sum of K exact products in any order is within
+    ``K * 2^-24 * sum_k |x_k w_k|`` of it; ``eps`` doubles that (a tensor
+    core truncates where an adder rounds), scales it by
+    ``|mult * out_inv_step|``, and adds ``8 * 2^-24 * |v|`` for the float32
+    roundings after the sum, which a changed sum may flip.
+
+    An int8 output may differ from :func:`int8_matmul_requant_plain`'s only
+    where ``|v - (floor(v) + 0.5)| <= eps`` (:func:`tie_mismatches`), and
+    there by at most ``step`` steps: 1, but ``ceil(res_ratio)`` where a
+    residual sum is requantized by a ratio above 1 (the value rounded at the
+    tie is then the projection on the shared grid).  With a float32 output
+    (``out_inv_step`` None) ``v`` is the output, the kernel's may be up to
+    ``eps`` from the plain version's, and ``step`` is 0.  Integer inputs
+    sum exactly: every output then equals the plain version's.
+    """
+    requant = out_inv_step is not None
+    scale = _f32(out_inv_step) if requant else 1.0
+    unit = 2.0 ** -24
+    k = x.shape[1]
+    wd = w.double()
+    wa = wd.abs()
+    mabs = mult.double().abs()
+    rows = max(1, _ROUNDING_CHUNK_ELEMS // max(k, w.shape[1]))
+    vs, es = [], []
+    for i in range(0, x.shape[0], rows):
+        xc = x[i:i + rows]
+        xd = xc.double() if xc.dtype == torch.bfloat16 else _decode(xc, in_unsigned).double()
+        y = (xd @ wd).float() * mult
+        y = y + bias
+        if relu and not (residual is not None and requant):
+            y = torch.clamp_min(y, 0.0)
+        v = (y * scale if requant else y).double()
+        vs.append(v)
+        es.append((2.0 * k * unit * abs(scale)) * (xd.abs() @ wa) * mabs + 8.0 * unit * v.abs())
+    if not requant:
+        step = 0
+    elif residual is not None:
+        step = max(1, math.ceil(res_ratio))
+    else:
+        step = 1
+    return torch.cat(vs), torch.cat(es), step
+
+
+def tie_mismatches(got: torch.Tensor, want: torch.Tensor, v: torch.Tensor, eps: torch.Tensor,
+                   step: int = 1) -> Tuple[int, int]:
+    """``(mismatches, refused)`` between a kernel output and the plain
+    version's under the tie rule: a mismatch is admitted where it is at most
+    ``step`` and ``v`` is within ``eps`` of a tie; every other is refused."""
+    d = (got.to(torch.int16) - want.to(torch.int16)).abs()
+    mis = d > 0
+    at_tie = (v - (torch.floor(v) + 0.5)).abs() <= eps
+    refused = mis & ((d > step) | ~at_tie)
+    return int(mis.sum()), int(refused.sum())
 
 
 def int8_matmul_requant(
@@ -131,18 +249,21 @@ def int8_matmul_requant(
     res_qmin: float = -128.0,
     in_unsigned: bool = False,
     out_bits: bool = False,
+    packed: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """K1: the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
 
     Output: (M, N) int8 (bits when ``out_bits``), or f32 when
     ``out_inv_step`` is None.  ``residual`` (int8 on the shared grid) selects
     the projection + residual variant; it ignores ``relu``, like the JAX one.
+    ``packed`` is :func:`pack_mm_weights` of ``w``, made once by a built
+    forward; without it the weights are packed here, on every call.
     """
     kw = dict(residual=residual, relu=relu, out_inv_step=out_inv_step, out_qmax=out_qmax,
               out_qmin=out_qmin, res_ratio=res_ratio, res_qmax=res_qmax, res_qmin=res_qmin,
               in_unsigned=in_unsigned, out_bits=out_bits)
     if x.device.type == "cpu":
-        return int8_matmul_requant_plain(x, w, mult, bias, **kw)
+        return int8_matmul_requant_plain(x, w, mult, bias, packed=packed, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul_requant: unsupported device {x.device}")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
@@ -172,13 +293,22 @@ def int8_matmul_requant(
             tensors.append(residual)
         else:
             out_mode = 1 if out_bits else 0
+    if packed is None:
+        packed = pack_mm_weights(w)
+    wp = packed["bf16" if x_mode == 2 else "int8"]
+    kpad = wp.shape[-1]
+    if (wp.dim() != 2 or wp.shape[0] != n or kpad < k or kpad % _MM_K_DEPTH
+            or wp.dtype != (torch.bfloat16 if x_mode == 2 else torch.int8)):
+        raise ValueError(f"int8_matmul_requant: packed weights {wp.dtype} {tuple(wp.shape)} "
+                         f"do not fit w {tuple(w.shape)} (pack_mm_weights)")
+    tensors.append(wp)
     for t in tensors:
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("int8_matmul_requant: operands must be contiguous, on one device")
     lib = _build.load_library("int8_matmul_requant")
     fn = lib.spef_int8_matmul_requant
     fn.argtypes, fn.restype = _MM_ARGTYPES, _I
-    code = fn(x.data_ptr(), x_mode, w.data_ptr(), mult.data_ptr(), bias.data_ptr(),
+    code = fn(x.data_ptr(), x_mode, wp.data_ptr(), kpad, mult.data_ptr(), bias.data_ptr(),
               residual.data_ptr() if out_mode == 3 else None, out.data_ptr(), out_mode,
               m, n, k, int(relu), 0.0 if out_inv_step is None else out_inv_step,
               out_qmin, out_qmax, res_ratio, res_qmin, res_qmax,

@@ -23,7 +23,8 @@ package, whose int32 dot truncates the boundary recipe's bf16 projection
 input (ROADMAP §C).
 
 The whole graph is planned once (folded multipliers, kernel arguments,
-device-resident weights); ``forward`` only launches.
+device-resident weights, K1's packed weight layouts); ``forward`` only
+launches.
 """
 
 from __future__ import annotations
@@ -192,7 +193,7 @@ def build_cuda_forward(
 
     def run_mm(x2d: torch.Tensor, layer: Dict[str, Any], residual=None) -> torch.Tensor:
         return mm(x2d, layer["w"], layer["mult"], layer["bias"], residual=residual,
-                  **layer["kw"])
+                  packed=layer["packed"], **layer["kw"])
 
     def forward(images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if images.dtype == torch.uint8:

@@ -23,8 +23,8 @@ integer pixels with 1/255 folded into the multiplier where the chain
 convolves pixels / 255 rounded to bf16.  Each follows its own JAX twin.
 
 The whole graph is planned once (folded multipliers, kernel arguments,
-device-resident weights, K4's packed weight layouts); ``forward`` only
-launches.
+device-resident weights, the packed weight layouts of K3, K4 and K1);
+``forward`` only launches.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from spef_tpu_torch.ops.fused_block import (
     fused_stem,
     fused_stem_plain,
     pack_mbconv_weights,
+    pack_stem_weights,
 )
 from spef_tpu_torch.ops.int8_ops import int8_matmul_requant, int8_matmul_requant_plain
 from spef_tpu_torch.quant.int8_graph import (
@@ -65,13 +66,15 @@ def stem_operands(stem: Dict[str, Any], tensor: TensorFn = _numpy_tensor
     """``(w, mult, bias), kwargs`` of :func:`fused_stem` for a graph's stem.
 
     The kernel convolves the integer pixels, so 1/255 goes into the
-    multiplier (in float32, as the JAX wrapper divides a float32 array)."""
+    multiplier (in float32, as the JAX wrapper divides a float32 array).
+    ``packed`` is the kernel's copy of the weights (``pack_stem_weights``)."""
     f32 = np.float32
     w = np.asarray(stem["w_int"])
     mult = np.asarray(stem["mult_core"], f32) / f32(255.0)
-    args = (tensor(w.reshape(3, 3, 3, w.shape[-1]), torch.int8), tensor(mult, torch.float32),
-            tensor(np.asarray(stem["bias"], f32), torch.float32))
-    return args, {"inv_step": float(1.0 / stem["act_step"]), "qmax": float(stem["act_qmax"])}
+    w_t = tensor(w.reshape(3, 3, 3, w.shape[-1]), torch.int8)
+    args = (w_t, tensor(mult, torch.float32), tensor(np.asarray(stem["bias"], f32), torch.float32))
+    return args, {"inv_step": float(1.0 / stem["act_step"]), "qmax": float(stem["act_qmax"]),
+                  "packed": pack_stem_weights(w_t)}
 
 
 def mbconv_operands(
@@ -213,7 +216,7 @@ def build_fused_forward(
             y = requant_signed(y, final_ratio, fs["qmax"])
         b, h, w, c = y.shape
         yf = mm(y.reshape(b * h * w, c), head_conv["w"], head_conv["mult"], head_conv["bias"],
-                relu=True, out_inv_step=None)
+                relu=True, out_inv_step=None, packed=head_conv["packed"])
         return tail(emit_unsigned(yf, head_step, head_qmax).view(b, h, w, -1))
 
     forward.takes_uint8 = True

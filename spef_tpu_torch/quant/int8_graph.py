@@ -14,6 +14,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from spef_tpu_torch.ops.int8_ops import pack_mm_weights
+
 __all__ = ["load_int8_graph", "scalars", "grid_params", "consumer_grid", "mm_weights",
            "true_div", "emit_unsigned", "bits_int8", "decode_unsigned_f32",
            "requant_signed", "build_head_tail"]
@@ -63,15 +65,17 @@ def consumer_grid(graph: Dict[str, Any], i: int) -> Optional[Dict[str, float]]:
     return None
 
 
-def mm_weights(layer: Dict[str, Any], in_step: float, tensor: TensorFn) -> Dict[str, torch.Tensor]:
+def mm_weights(layer: Dict[str, Any], in_step: float, tensor: TensorFn) -> Dict[str, Any]:
     """K1 operands of a 1x1 convolution: ``w (K, N)`` int8, the multiplier
     with the input step folded in (in float32, as JAX computes a float32
-    array times a Python float) and the bias."""
+    array times a Python float), the bias, and ``packed``, the kernel's
+    copy of ``w`` (``pack_mm_weights``, once a forward-build)."""
     w = np.asarray(layer["w_int"])
     mult = np.asarray(layer["mult_core"], np.float32) * np.float32(in_step)
-    return {"w": tensor(w.reshape(w.shape[-2], w.shape[-1]), torch.int8),
-            "mult": tensor(mult, torch.float32),
-            "bias": tensor(np.asarray(layer["bias"], np.float32), torch.float32)}
+    w_t = tensor(w.reshape(w.shape[-2], w.shape[-1]), torch.int8)
+    return {"w": w_t, "mult": tensor(mult, torch.float32),
+            "bias": tensor(np.asarray(layer["bias"], np.float32), torch.float32),
+            "packed": pack_mm_weights(w_t)}
 
 
 def true_div(y: torch.Tensor, d: float) -> torch.Tensor:
