@@ -11,12 +11,14 @@ each printed on its own lines; any failure exits nonzero:
      every ``spef_tpu_torch/csrc/*.cu`` compiled by ``nvcc`` for ``sm_90a``,
      one process per source, all at once;
   2. every K1 variant (with the flagship's largest expand, block 1's
-     bits -> float32 at M = 5,898,240, and block 0's projection) and K2
-     mode, K3 with a signed and a bits output and K4 over its options (no
-     expand, both residual cases, stride 2 at even and odd height, hidden /
-     depthwise grid on and off, uint8-bits input, Cin padded to the mma
-     depth, exact sums), each against its plain PyTorch version at flagship
-     layer shapes.  Mismatches must be 0 wherever the sums are integers.
+     bits -> float32 at M = 5,898,240, block 0's projection, and the int8
+     carry's division, shifted emit and residual) and K2 mode (with the
+     carry's ``-128`` halo, division and shifted emit), K3 with a signed
+     and a bits output and K4 over its options (no expand, both residual
+     cases, stride 2 at even and odd height, hidden / depthwise grid on and
+     off, uint8-bits input, Cin padded to the mma depth, exact sums), each
+     against its plain PyTorch version at flagship layer shapes.
+     Mismatches must be 0 wherever the sums are integers.
      Where they are not (K1 with bf16 input, K4 with a real-valued
      depthwise output) the tensor cores' order may move an output by one
      step where the value rounded last sits on a tie
@@ -42,13 +44,32 @@ each printed on its own lines; any failure exits nonzero:
      alone timed apart; logits within 0.3 of the plain backend's on the card
      (K4's tie rule), the distance printed; the distance of its logits and
      poses from the layer executor's printed;
-  6. each kernel at its path's own inputs (batch 256): mismatches (K1's
+  6. the int8 build chain at full width: the flagship's float checkpoint
+     into its boundary-recipe QAT twin (``copy_params``), converted
+     (``convert_qat_params``) and calibrated on the card (``calibrate_graph``
+     on the 32 frames ``render_frame`` gives for seed 0, batches of 8); the
+     graph held against the committed asset (structure, ``w_int``, qmax,
+     strides, ``mult_core`` and ``bias`` identical; every step within one
+     histogram bin, the largest difference printed);
+  7. that graph written out as a QAT experiment (``config.yaml``,
+     ``save_model`` with the calibrated scales, ``int8_graph.pkl``) and
+     served: the engine's variants (the QAT model's forward, ``weight-only``,
+     ``int8-carry``) and ``apps.serve --int8-executor carry`` at serve
+     windows of 256 and 1, the counters set to 0 before each and read after
+     (34 K1 and 17 K2 launches a carry forward, none for the other two);
+     request p50 of 8 (host clock), frames/s, the carry forward alone (CUDA
+     events); its logits within 0.3 of the plain backend's and of the
+     ``layer`` executor's on the same graph, its distances from
+     ``int8_forward`` and the QAT forward printed; then ``bench.py``'s
+     construction once (a random-init ``_q`` model at 256x256, boundary
+     recipe, carry + decode, batch 256), its frames/s printed;
+  8. each kernel at its path's own inputs (batch 256): mismatches (K1's
      bf16-input calls and K4 under the tie rule, at most one step; any
      mismatch of an integer-input call fails), kernel / plain / library time
      (CUDA events) and its bound, printed as one ``{"kernels": [...]}`` JSON
      line of four entries; K1's one call on the fused path (the head conv)
-     is timed apart;
-  7. the last line: ``{"ok": true, "device": {...}}``.
+     is timed apart, and K1's and K2's calls on the carry path;
+  9. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, where ``torch.cuda.is_available()`` is
 false or the package is missing.
@@ -58,6 +79,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -96,6 +118,7 @@ REDESIGNED = ("int8_depthwise3x3", "fused_mbconv", "int8_matmul_requant", "fused
 TIE_SHARE = 0.005
 # What one forward of each executor launches.
 LAYER_LAUNCHES = {"int8_matmul_requant": 34, "int8_depthwise3x3": 17}
+CARRY_LAUNCHES = {"int8_matmul_requant": 34, "int8_depthwise3x3": 17}
 FUSED_LAUNCHES = {"fused_stem": 1, "fused_mbconv": 17, "int8_matmul_requant": 1}
 
 
@@ -148,7 +171,7 @@ def check_mm(a, args, kw):
             raise AssertionError(f"int8_matmul_requant: {mis} mismatches with integer input")
         return 0, err, 0
     v, eps, step = int8_matmul_requant_rounding_input(*args, **kw)
-    if kw.get("out_inv_step") is None:
+    if _f32_out(kw):
         outside = int(((a.double() - b.double()).abs() > eps).sum())
         if outside:
             raise AssertionError(f"int8_matmul_requant: {outside} float32 outputs further than "
@@ -195,13 +218,19 @@ def check_mbconv(a, args, kw):
 # ---------------------------------------------------------------------------
 
 
+def _f32_out(kw):
+    """Whether a K1 call's keyword arguments ask for a float32 output (no
+    requant: neither ``out_inv_step`` nor the carry's ``out_step``)."""
+    return kw.get("out_inv_step") is None and kw.get("out_step") is None
+
+
 def mm_bound(args, kw):
     x, w = args[0], args[1]
     m, k = x.shape
     n = w.shape[1]
-    out_bytes = 4 if kw.get("out_inv_step") is None else 1
+    out_bytes = 4 if _f32_out(kw) else 1
     nbytes = m * k * x.element_size() + k * n + m * n * out_bytes + 8 * n
-    if kw.get("residual") is not None and kw.get("out_inv_step") is not None:
+    if kw.get("residual") is not None and not _f32_out(kw):
         nbytes += m * n
     ops = 2 * m * n * k
     t_bytes = nbytes / PEAK_BYTES_S
@@ -214,7 +243,8 @@ def dw_bound(args, kw):
     b, h, w, c = x.shape
     s = kw.get("stride", 1)
     ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
-    out_bytes = 2 if kw.get("out_inv_step", 1.0) is None else 1
+    bf16_out = kw.get("out_inv_step", 1.0) is None and kw.get("out_step") is None
+    out_bytes = 2 if bf16_out else 1
     nbytes = x.numel() * x.element_size() + b * ho * wo * c * out_bytes + 9 * c + 8 * c
     ops = 2 * 9 * b * ho * wo * c  # f32 multiply-adds on the CUDA cores
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S["f32"]
@@ -272,6 +302,8 @@ def mm_library(args, kw):
     xb = x.to(torch.bfloat16) if not x.dtype.is_floating_point else x
     wb = w.to(torch.bfloat16)
     inv = kw.get("out_inv_step")
+    if kw.get("out_step") is not None:
+        inv = 1.0 / kw["out_step"]
 
     def run():
         y = torch.matmul(xb, wb).float() * mult + bias
@@ -390,6 +422,17 @@ def phase_variants(torch, dev):
             (torch.rand(m01, 32, generator=g) * 6).to(torch.bfloat16),
             torch.randint(-8, 8, (32, 16), generator=g).to(torch.int8),
             dict(relu=False, out_inv_step=2.0, out_qmin=-128.0)),
+        # the int8 carry's conventions: requant by division, a shifted
+        # unsigned emit, and the projection's division with a residual
+        "carry_int8_in_div_shifted_out": (ints, w_e, dict(
+            relu=True, out_inv_step=None, out_step=0.125, out_qmax=255.0, out_zp=128)),
+        "carry_int8_in_div_int8_out": (ints, w_e, dict(
+            relu=False, out_inv_step=None, out_step=0.5, out_qmin=-128.0)),
+        "carry_bf16_in_div": (real, w_p, dict(relu=False, out_inv_step=None, out_step=0.5,
+                                              out_qmin=-128.0)),
+        "carry_bf16_in_residual_div": (real, w_p, dict(
+            relu=False, out_inv_step=None, out_step=0.25, out_qmax=127.0, out_qmin=-128.0,
+            res_ratio=1.0, res_qmax=127.0, res_qmin=-128.0, residual=res)),
     }
     for name in list(cases):
         x, w, kw = cases.pop(name)
@@ -417,6 +460,15 @@ def phase_variants(torch, dev):
         # blocks 1 and 2 as the boundary recipe runs them: float32 in, bf16 out
         "f32_in_bf16_out_s2_block1": ((BATCH, 120, 192, 96), 2, "real", dict(out_inv_step=None)),
         "f32_in_bf16_out_s1_block2": ((BATCH, 60, 96, 144), 1, "real", dict(out_inv_step=None)),
+        # the int8 carry's conventions: a shifted input padded with -128,
+        # requant by division, a shifted unsigned emit
+        "carry_shifted_in_halo_div_shifted_out_s1": (
+            (BATCH, 120, 192, 32), 1, "int8",
+            dict(out_inv_step=None, out_step=0.1, out_qmax=255.0, out_zp=128, halo=-128)),
+        "carry_shifted_in_halo_div_s2": ((BATCH, 15, 24, 576), 2, "int8",
+                                         dict(out_inv_step=None, out_step=0.2, halo=-128)),
+        "carry_f32_in_div_shifted_out_s2": ((BATCH, 15, 24, 576), 2, "real", dict(
+            out_inv_step=None, out_step=0.1, out_qmax=255.0, out_zp=128)),
     }
     for name, (shape, stride, src, kw) in dw_cases.items():
         if src == "real":
@@ -637,21 +689,30 @@ def _counters():
             "fused_stem": fused_stem, "fused_mbconv": fused_mbconv}
 
 
+def _reset_counters():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counters(label, forwards, per_forward):
+    """The launch counts since ``_reset_counters``: exactly ``per_forward``
+    a forward, and 0 for the kernels off the path."""
+    launches = {name: fn.launches for name, fn in _counters().items()}
+    log(f"[{label}] launches over {forwards} forwards: {launches}")
+    want = {name: per_forward.get(name, 0) * forwards for name in launches}
+    assert launches == want, (launches, want)
+    return launches
+
+
 def _drive_counted(np, server, frames, label, per_forward):
     """A main path: every launch count to 0, warmup + requests, read the
     counts; they must be exactly what ``per_forward`` says, forward for
     forward, and 0 for the kernels that are not on this path."""
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    _reset_counters()
     log(f"[{label}] warmup {server.warmup():.2f} s")
     pose = _drive(np, server, frames, label)
-    forwards = 1 + 3 + 4  # warmup, the three requests, the sustained run
-    launches = {name: fn.launches for name, fn in counters.items()}
-    log(f"[{label}] launches over {forwards} forwards: {launches}")
-    want = {name: per_forward.get(name, 0) * forwards for name in counters}
-    assert launches == want, (launches, want)
-    return pose, launches
+    # warmup, the three requests, the sustained run
+    return pose, _read_counters(label, 1 + 3 + 4, per_forward)
 
 
 def phase_int8(torch, np, dev, frames, executor):
@@ -688,7 +749,7 @@ def phase_int8(torch, np, dev, frames, executor):
         plain_server, _ = _serve(torch, ["--experiment", FLAGSHIP, "--int8-graph", ASSET,
                                          "--int8-executor", executor, "--int8-backend", "plain",
                                          "--batch", str(BATCH)])
-        log_distance(np, "kernels vs plain backend on the card", (pose, got),
+        log_distance(np, "fused", "kernels vs plain backend on the card", (pose, got),
                      (plain_server.predict(frames)[0], want))
     assert np.array_equal(pose["ori_soft"], torch.softmax(got[0], -1).cpu().numpy())
     cpu = build(graph, backend="plain", device="cpu")(torch.from_numpy(frames[:2]))
@@ -698,26 +759,14 @@ def phase_int8(torch, np, dev, frames, executor):
     return launches, pose, got
 
 
-def log_distance(np, what, a, b):
-    """How far two runs' logits and poses are on the same frames; ``a`` and
-    ``b`` are (pose, logits)."""
-    (pose_a, logits_a), (pose_b, logits_b) = a, b
-    d_logit = max(float((x - y).abs().max()) for x, y in zip(logits_a, logits_b))
-    dot = np.clip(np.abs((pose_a["ori"] * pose_b["ori"]).sum(-1)), 0.0, 1.0)
-    ang = 2.0 * np.degrees(np.arccos(dot))
-    d_pos = np.linalg.norm(pose_a["pos"] - pose_b["pos"], axis=-1)
-    log(f"[fused] {what} over {BATCH} random frames: max |d logit| "
-        f"{d_logit:.4g}; orientation mean {ang.mean():.3f} deg, max {ang.max():.3f} deg; "
-        f"position mean {d_pos.mean():.4f} m, max {d_pos.max():.4f} m")
-
-
 def log_executor_distance(np, layer, fused):
     """How far the fused executor's logits and poses are from the layer
     executor's on the same frames.  They follow different JAX twins (a
     float32 against a bf16 hidden tensor, integer pixels against pixels / 255
     in bf16 in the stem), so this is reported, not required to be 0."""
     (_, layer_pose, layer_logits), (_, pose, logits) = layer, fused
-    log_distance(np, "fused vs layer executor", (pose, logits), (layer_pose, layer_logits))
+    log_distance(np, "fused", "fused vs layer executor", (pose, logits),
+                 (layer_pose, layer_logits))
 
 
 def _recorded_calls(torch, module, names, build, frames, dev):
@@ -745,9 +794,12 @@ def _recorded_calls(torch, module, names, build, frames, dev):
     return calls
 
 
-def phase_kernels(torch, dev, frames, launches):
+def phase_kernels(torch, dev, frames, launches, built_graph):
     """Each kernel at its main path's own inputs (one batch-256 forward):
-    K1 and K2 on the layer executor's, K3 and K4 on the fused executor's."""
+    K1 and K2 on the layer executor's, K3 and K4 on the fused executor's;
+    then K1 and K2 again on the int8-carry executor's (the graph built on
+    the card), in their carry modes."""
+    import spef_tpu_torch.quant.int8_carry as int8_carry
     import spef_tpu_torch.quant.int8_cuda as int8_cuda
     import spef_tpu_torch.quant.int8_fused as int8_fused
     from spef_tpu_torch.ops import fused_block, int8_ops
@@ -762,6 +814,10 @@ def phase_kernels(torch, dev, frames, launches):
         lambda: int8_fused.build_fused_forward(graph, backend="cuda", device=dev), frames, dev)
     head_conv = fused_calls.pop("int8_matmul_requant")  # K1's one call on the fused path
     calls.update(fused_calls)
+    carry_calls = _recorded_calls(
+        torch, int8_carry, ("int8_matmul_requant", "int8_depthwise3x3"),
+        lambda: int8_carry.build_int8_carry_forward(built_graph, backend="cuda", device=dev),
+        frames, dev)
     table = {
         # name: (module, bound, library yardstick, its label)
         "int8_matmul_requant": (int8_ops, mm_bound, mm_library, "bf16 matmul + epilogue ops"),
@@ -806,24 +862,32 @@ def phase_kernels(torch, dev, frames, launches):
             f"library {l_ms:.4f} ms, bound {b_ms:.4f} ms ({by}){extra}")
         return mis, err, k_ms, p_ms, l_ms, b_ms, by, step
 
-    rows = []
-    for name, recs in calls.items():
+    def measure_all(name, recs, path):
+        """Every recorded call of one kernel on one path, summed."""
         lib_label = table[name][3]
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                "bytes_ms": 0.0, "ops_ms": 0.0}
         mismatches, max_err, max_step = 0, 0.0, 0
         for i, (args, kw) in enumerate(recs):
-            mis, err, k_ms, p_ms, l_ms, b_ms, by, step = measure(name, i, args, kw)
+            mis, err, k_ms, p_ms, l_ms, b_ms, by, step = measure(name, f"{path} {i}", args, kw)
             mismatches, max_err, max_step = mismatches + mis, max(max_err, err), max(max_step, step)
             tot["ms"] += k_ms
             tot["plain_ms"] += p_ms
             tot["library_ms"] += l_ms
             tot["bound_ms"] += b_ms
             tot["bytes_ms" if by == "bytes" else "ops_ms"] += b_ms
-        log(f"[kernels] {name}: {len(recs)} calls a forward, {mismatches} mismatches, "
-            f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, library "
+        log(f"[kernels] {name} on {path}: {len(recs)} calls a forward, {mismatches} "
+            f"mismatches, kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, library "
             f"({lib_label}) {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms a "
             f"batch-{BATCH} forward ({tot['ms'] / tot['bound_ms']:.1f}x the bound)")
+        return tot, mismatches, max_err, max_step
+
+    paths = {"int8_matmul_requant": "layer", "int8_depthwise3x3": "layer",
+             "fused_stem": "fused", "fused_mbconv": "fused"}
+    rows = []
+    for name, recs in calls.items():
+        lib_label = table[name][3]
+        tot, mismatches, max_err, max_step = measure_all(name, recs, paths[name])
         tied = name in ("fused_mbconv", "int8_matmul_requant")
         if mismatches and not tied:
             raise AssertionError(f"{name}: {mismatches} kernel/plain mismatches")
@@ -846,6 +910,20 @@ def phase_kernels(torch, dev, frames, launches):
             # tie_steps_admitted the most the rule admitted at any call.
             row["tie_mismatches"] = mismatches
             row["tie_steps_admitted"] = max_step
+        if name in carry_calls:
+            # The same kernel on the int8-carry path: division, shifted
+            # grids and the -128 halo.
+            c_tot, c_mis, c_err, c_step = measure_all(name, carry_calls[name], "carry")
+            if c_mis and not tied:
+                raise AssertionError(f"{name}: {c_mis} kernel/plain mismatches on carry")
+            if c_step > 1 or c_err > 1:
+                raise AssertionError(f"{name}: max |kernel - plain| {c_err} on carry")
+            row["carry_path"] = {
+                "calls_per_forward": len(carry_calls[name]), "ms": c_tot["ms"],
+                "plain_ms": c_tot["plain_ms"], "library_ms": c_tot["library_ms"],
+                "bound_ms": c_tot["bound_ms"],
+                "bound_by": "bytes" if c_tot["bytes_ms"] >= c_tot["ops_ms"] else "operations",
+                "max_abs_err": c_err, "mismatches": c_mis}
         rows.append(row)
 
     # K1's head-conv call of the fused path (int8 in, float32 out), apart.
@@ -858,6 +936,266 @@ def phase_kernels(torch, dev, frames, launches):
                                  "library_ms": l_ms, "bound_ms": b_ms, "bound_by": by,
                                  "max_abs_err": err}
     return rows
+
+
+# ---------------------------------------------------------------------------
+# The int8 build chain and the int8-carry executor
+# ---------------------------------------------------------------------------
+
+STEP_KEYS = ("act_step", "shared_step", "step", "pool_step")
+
+
+def compare_graphs(np, got, want, path="graph"):
+    """Hold a graph built on the card against the committed asset: the same
+    structure, integer weights, grids' qmax, strides and flags; identical
+    float32 arrays (``mult_core``, ``bias``, the head's scales and biases:
+    the conversion is the same float64 numpy on both sides); every
+    calibrated step within one histogram bin, taken as ``amax / 2048`` (the
+    narrowest bin the 99.99th percentile of a 2048-bin histogram can have
+    picked).  Returns the largest step difference in bins; raises on any
+    other difference."""
+    worst = 0.0
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{path}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            if k in STEP_KEYS:
+                qmax = want[{"act_step": "act_qmax", "shared_step": "shared_qmax",
+                             "step": "qmax", "pool_step": "pool_qmax"}[k]]
+                amax = want[k] * qmax
+                bins = abs(got[k] - want[k]) * qmax / (amax / 2048.0)
+                if not bins <= 1.0:
+                    raise AssertionError(f"{path}/{k}: step {got[k]!r} vs {want[k]!r}, "
+                                         f"{bins:.4f} bins apart")
+                worst = max(worst, bins)
+            else:
+                worst = max(worst, compare_graphs(np, got[k], want[k], f"{path}/{k}"))
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{path}: length {len(got)} != {len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            worst = max(worst, compare_graphs(np, a, b, f"{path}[{i}]"))
+    elif isinstance(want, np.ndarray):
+        if not (isinstance(got, np.ndarray) and got.dtype == want.dtype
+                and got.shape == want.shape and np.array_equal(got, want)):
+            raise AssertionError(f"{path}: arrays differ")
+    elif got != want:
+        raise AssertionError(f"{path}: {got!r} != {want!r}")
+    return worst
+
+
+def phase_build(torch, np, dev):
+    """The flagship's boundary-recipe int8 graph built on the card from its
+    float checkpoint: the QAT twin (``mobilenet_v2_q`` + ``ursonet_q``),
+    ``copy_params``, ``convert_qat_params``, ``calibrate_graph`` on the 32
+    frames ``render_frame`` gives for seed 0, in batches of 8; then held
+    against the committed asset (``compare_graphs``)."""
+    from spef_tpu_torch.data.synthetic import generate_positions, render_frame
+    from spef_tpu_torch.models.flax_msgpack import read_flax_msgpack
+    from spef_tpu_torch.models.wrapper import flax_variables, import_model, load_flax_variables
+    from spef_tpu_torch.quant.bitwidth import boundary_bit_width
+    from spef_tpu_torch.quant.calibrate import calibrate_graph
+    from spef_tpu_torch.quant.convert import convert_qat_params
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph, scalars
+    from spef_tpu_torch.quant.warmstart import copy_params
+
+    t0 = time.perf_counter()
+    qmodel = import_model("mobilenet_v2_q", "ursonet_q", bit_width=boundary_bit_width(),
+                          ori_mode="classification", n_ori_bins=1232,
+                          pos_mode="classification", n_pos_bins=1000, device=dev)
+    src = read_flax_msgpack(os.path.join(FLAGSHIP, "model", "parameters.msgpack"))
+    load_flax_variables(qmodel, copy_params(src, flax_variables(qmodel)))
+    graph = convert_qat_params(qmodel)
+    t1 = time.perf_counter()
+    rng = np.random.RandomState(0)
+    oris, poss = generate_positions(rng, 32)
+    calib = np.stack([render_frame(q, p, img_size=(240, 384), rng=rng)
+                      for q, p in zip(oris, poss)])
+    t2 = time.perf_counter()
+    graph, amaxes = calibrate_graph(graph, (calib[i:i + 8] for i in range(0, 32, 8)),
+                                    device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    log(f"[build] float checkpoint -> QAT twin -> copy_params -> convert_qat_params "
+        f"{t1 - t0:.2f} s; 32 calibration frames rendered {t2 - t1:.2f} s; calibrate_graph "
+        f"on the card (4 batches of 8, {len(amaxes)} sites) {t3 - t2:.2f} s")
+    worst = compare_graphs(np, scalars(graph), load_int8_graph(ASSET))
+    log(f"[build] graph built on the card vs the committed asset: structure, w_int, qmax, "
+        f"strides, mult_core and bias identical; largest calibrated step difference "
+        f"{worst:.6f} of a histogram bin (at most 1)")
+    return qmodel, graph, amaxes
+
+
+def write_qat_experiment(np, qmodel, graph, amaxes, exp_dir):
+    """A QAT experiment as the build chain leaves one: ``config.yaml`` (the
+    flagship's), ``model/parameters.msgpack`` + ``model/bit_width.json``
+    (``save_model``, the calibrated scales written into the QAT model's
+    ``log2_scale`` leaves) and ``int8_graph.pkl``."""
+    import pickle
+    import shutil
+
+    from spef_tpu_torch.models.wrapper import flax_variables, load_flax_variables, save_model
+    from spef_tpu_torch.quant.calibrate import write_scales_to_params
+
+    os.makedirs(exp_dir)
+    shutil.copy(os.path.join(FLAGSHIP, "config.yaml"), os.path.join(exp_dir, "config.yaml"))
+    load_flax_variables(qmodel, write_scales_to_params(flax_variables(qmodel), amaxes))
+    save_model(os.path.join(exp_dir, "model"), qmodel)
+    with open(os.path.join(exp_dir, "int8_graph.pkl"), "wb") as f:
+        pickle.dump(graph, f, protocol=4)
+
+
+def _timed_requests(np, server, frames, label, n=8):
+    """``n`` requests of ``len(frames)`` frames: p50 of their host-clock
+    times and frames/s over them."""
+    times = []
+    for _ in range(n):
+        _, ms = server.predict(frames)
+        times.append(ms)
+    p50 = float(np.percentile(times, 50))
+    fps = len(frames) * n / (sum(times) / 1e3)
+    log(f"[{label}] {n} requests of {len(frames)} frames: p50 {p50:.3f} ms (host clock), "
+        f"{fps:.1f} frames/s")
+    return p50, fps
+
+
+def log_distance(np, label, what, a, b):
+    """How far two runs' logits and poses are on the same frames; ``a`` and
+    ``b`` are (pose, logits).  Returns the largest logit distance."""
+    (pose_a, logits_a), (pose_b, logits_b) = a, b
+    d_logit = max(float((x.float() - y.float()).abs().max()) for x, y in zip(logits_a, logits_b))
+    dot = np.clip(np.abs((pose_a["ori"] * pose_b["ori"]).sum(-1)), 0.0, 1.0)
+    ang = 2.0 * np.degrees(np.arccos(dot))
+    d_pos = np.linalg.norm(pose_a["pos"] - pose_b["pos"], axis=-1)
+    log(f"[{label}] {what} over {len(dot)} frames: max |d logit| "
+        f"{d_logit:.4g}; orientation mean {ang.mean():.3f} deg, max {ang.max():.3f} deg; "
+        f"position mean {d_pos.mean():.4f} m, max {d_pos.max():.4f} m")
+    return d_logit
+
+
+def phase_carry(torch, np, dev, frames, exp_dir, graph):
+    """The QAT experiment served: the engine's variants (the QAT model's
+    float forward, ``weight-only``, ``int8-carry``) and ``apps.serve
+    --int8-executor carry`` at serve windows of 256 and 1, launches counted;
+    the carry forward alone; its distances from the plain backend, the
+    ``layer`` executor, ``int8_forward`` and the QAT forward."""
+    from spef_tpu_torch.codec.facade import SPEUtils
+    from spef_tpu_torch.data.camera import SPEED_CAMERA
+    from spef_tpu_torch.engine import build_engine_variant, discover_engine_variants
+    from spef_tpu_torch.models.wrapper import import_model
+    from spef_tpu_torch.quant.bitwidth import load_bit_width
+    from spef_tpu_torch.quant.int8_carry import build_int8_carry_forward
+    from spef_tpu_torch.quant.int8_cuda import build_cuda_forward
+    from spef_tpu_torch.quant.int8_model import build_int8_forward
+
+    variants = discover_engine_variants(exp_dir)
+    log(f"[carry] engine variants of the QAT experiment: {variants}")
+    assert variants == ["float", "weight-only", "int8-carry"], variants
+    utils = SPEUtils.create(SPEED_CAMERA, ori_mode="classification", pos_mode="classification",
+                            device=dev)
+    qat_model = import_model(
+        "mobilenet_v2_q", "ursonet_q",
+        params_path=os.path.join(exp_dir, "model", "parameters.msgpack"),
+        bit_width=load_bit_width(os.path.join(exp_dir, "model", "bit_width.json")),
+        ori_mode="classification", n_ori_bins=1232, pos_mode="classification",
+        n_pos_bins=1000, device=dev)
+    x = torch.from_numpy(frames).to(dev)
+    poses = {}
+    for variant in variants:
+        engine = build_engine_variant(exp_dir, qat_model, utils, variant, device=dev)
+        per_forward = CARRY_LAUNCHES if variant == "int8-carry" else {}
+        _reset_counters()
+        engine.predict(x)  # warmup
+        times = [engine.predict(x)[1] for _ in range(8)]
+        _read_counters(f"carry:{variant}", 9, per_forward)
+        pose, _ = engine.predict(x)
+        poses[variant] = {k: v.cpu().numpy() for k, v in pose.items()}
+        _check_pose(np, poses[variant], BATCH)
+        log(f"[carry:{variant}] engine predict at batch {BATCH} on frames on the card: p50 "
+            f"{float(np.percentile(times, 50)):.3f} ms of 8 (host clock), "
+            f"{BATCH / float(np.percentile(times, 50)) * 1e3:.1f} frames/s")
+
+    graph_pkl = os.path.join(exp_dir, "int8_graph.pkl")
+    for window in (BATCH, 1):
+        server, _ = _serve(torch, ["--experiment", exp_dir, "--int8-graph", graph_pkl,
+                                   "--int8-executor", "carry", "--batch", str(window)])
+        _reset_counters()
+        log(f"[carry] serve --int8-executor carry --batch {window}: warmup "
+            f"{server.warmup():.2f} s")
+        _timed_requests(np, server, frames[:window], f"carry b{window}")
+        counted = _read_counters(f"carry b{window}", 1 + 8, CARRY_LAUNCHES)
+        if window == BATCH:
+            launches = counted
+            served = server.predict(frames)[0]
+            _check_pose(np, served, BATCH)
+            _request_parts(torch, server, frames, "carry")
+
+    fwd = build_int8_carry_forward(graph, backend="cuda", device=dev)
+    assert fwd.launches_per_call == CARRY_LAUNCHES, fwd.launches_per_call
+    for n in (BATCH, 1):
+        log(f"[carry] int8-carry forward alone at batch {n}: "
+            f"{time_ms(lambda: fwd(x[:n]), reps=10):.3f} ms (CUDA events)")
+    got = fwd(x)
+
+    def pose_of(logits):
+        return {k: v.cpu().numpy() for k, v in
+                utils.decode(utils.last_activ({"ori_soft": logits[0], "pos_soft": logits[1]})
+                             ).items()}
+
+    plain = build_int8_carry_forward(graph, backend="plain", device=dev)(x)
+    d = log_distance(np, "carry", "kernels vs plain backend on the card",
+                     (pose_of(got), got), (pose_of(plain), plain))
+    assert d < 0.3, d  # K1's ties at the bf16 projections
+    layer = build_cuda_forward(graph, backend="cuda", device=dev)(x)
+    d = log_distance(np, "carry", "carry vs layer executor (same graph)",
+                     (pose_of(got), got), (pose_of(layer), layer))
+    assert d < 0.3, d
+    ref = build_int8_forward(graph, device=dev)(x)
+    log_distance(np, "carry", "carry vs int8_forward (same graph)",
+                 (pose_of(got), got), (pose_of(ref), ref))
+    with torch.inference_mode():
+        qat = qat_model(x.float() / torch.tensor(255.0, device=dev))
+    log_distance(np, "carry", "carry vs the QAT forward",
+                 (pose_of(got), got), (pose_of(qat), qat))
+    assert np.array_equal(poses["int8-carry"]["ori_soft"], pose_of(got)["ori_soft"])
+    return launches
+
+
+def phase_bench_construction(torch, np, dev):
+    """``bench.py``'s construction on the port: a random-init ``_q`` model at
+    256x256, the boundary recipe, converted, served by the int8-carry
+    executor with the soft-class decode; frames/s at batch 256."""
+    from spef_tpu_torch.codec.facade import SPEUtils
+    from spef_tpu_torch.data.camera import SPEED_CAMERA
+    from spef_tpu_torch.engine import build_predict_fn
+    from spef_tpu_torch.models.wrapper import import_model
+    from spef_tpu_torch.quant.bitwidth import boundary_bit_width
+    from spef_tpu_torch.quant.convert import convert_qat_params
+    from spef_tpu_torch.quant.int8_carry import build_int8_carry_forward
+
+    utils = SPEUtils.create(SPEED_CAMERA, ori_mode="classification", pos_mode="classification",
+                            device=dev)
+    model = import_model("mobilenet_v2_q", "ursonet_q", bit_width=boundary_bit_width(),
+                         ori_mode="classification", n_ori_bins=utils.orientation.n_bins,
+                         pos_mode="classification", n_pos_bins=utils.position.n_bins,
+                         device=dev)
+    predict = build_predict_fn(None, utils, forward_fn=build_int8_carry_forward(
+        convert_qat_params(model), device=dev))
+    frames = torch.from_numpy(np.random.RandomState(1001).randint(
+        0, 256, (BATCH, 256, 256, 3), np.uint8)).to(dev)
+    for _ in range(3):
+        out = predict(frames)
+    torch.cuda.synchronize()
+    iters = 20
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = predict(frames)
+    torch.cuda.synchronize()
+    fps = iters * BATCH / (time.perf_counter() - t0)
+    assert out["ori"].shape == (BATCH, 4) and bool(torch.isfinite(out["ori"]).all())
+    log(f"[bench] bench.py's construction (random-init mobilenet_v2_q + ursonet_q, "
+        f"boundary recipe, int8-carry + decode, 256x256, batch {BATCH}): {fps:.1f} frames/s "
+        f"(host clock over {iters} batches on the card)")
 
 
 def main() -> int:
@@ -882,14 +1220,26 @@ def main() -> int:
     layer = phase_int8(torch, np, dev, frames, "layer")
     fused = phase_int8(torch, np, dev, frames, "fused")
     log_executor_distance(np, layer, fused)
+    qmodel, graph, amaxes = phase_build(torch, np, dev)
+    exp_dir = os.path.join(REPO, "build", f"chip_smoke_qat_experiment_{os.getpid()}")
+    try:
+        write_qat_experiment(np, qmodel, graph, amaxes, exp_dir)
+        del qmodel
+        carry_launches = phase_carry(torch, np, dev, frames, exp_dir, graph)
+    finally:
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    phase_bench_construction(torch, np, dev)
     layer_launches, fused_launches = layer[0], fused[0]
-    # K1 is on both paths: its row keeps the layer executor's count (its
-    # times are of those 34 calls); the fused path's is beside it.
+    # K1 and K2 are on three paths: their rows keep the layer executor's
+    # counts (their times are of those calls); the others are beside them.
     launches = {name: layer_launches[name] or fused_launches[name] for name in KERNELS}
-    rows = phase_kernels(torch, dev, frames, launches)
+    rows = phase_kernels(torch, dev, frames, launches, graph)
     for row in rows:
         if row["name"] == "int8_matmul_requant":
             row["launches_fused_path"] = fused_launches["int8_matmul_requant"]
+        if row["name"] in CARRY_LAUNCHES:
+            # serve --int8-executor carry --batch 256, 9 forwards (phase_carry)
+            row["launches_carry_path"] = carry_launches[row["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,27 @@
 """Deployment CLI — load an experiment and serve pose inference on one GPU.
 
 Counterpart of ``spef_tpu.apps.serve``: loads a trained experiment (float
-checkpoint, optionally with a converted ``int8_graph.pkl``), builds the
-serving program on one device and runs a throughput / latency self-test.
+checkpoint, or a QAT one: ``model/bit_width.json`` beside the weights
+selects the quantized ``_q`` models), optionally with a converted
+``int8_graph.pkl``, builds the serving program on one device and runs a
+throughput / latency self-test.
 
 Usage:
     python -m spef_tpu_torch.apps.serve --experiment experiments/train_synth/exp_dspeed_synth \\
         [--int8-graph spef_tpu_torch/assets/flagship_boundary_int8_graph.pkl] \\
-        [--int8-executor layer|fused] [--int8-backend cuda|plain] \\
+        [--int8-executor layer|fused|carry|weight-only] [--int8-backend cuda|plain] \\
         [--batch 256] [--selftest-frames 2048] [--device cuda]
 
-``--int8-executor layer`` runs one kernel a layer (K1/K2,
-``quant.int8_cuda.build_cuda_forward``); ``fused`` runs the deployment
-executor, one kernel a block (K3/K4, ``quant.int8_fused.build_fused_forward``).
+The int8 executors of ``--int8-graph``:
+
+  * ``layer``: one kernel a layer (K1/K2, ``quant.int8_cuda``), the
+    ``int8_pallas`` conventions;
+  * ``fused``: one kernel a block (K3/K4, ``quant.int8_fused``);
+  * ``carry``: the deployed int8-carry executor on K1/K2
+    (``quant.int8_carry``), the engine's ``int8-carry`` variant;
+  * ``weight-only``: the integer weights on bf16 activations, plain PyTorch
+    convolutions (``quant.int8_model.build_weight_only_forward``), the
+    engine's ``weight-only`` variant; ``--int8-backend`` does not apply.
 
 ``--frames-dir``, the native frame loader, crop-refine and ``--artifact``
 come in later slices (ROADMAP §A: data, keypoints family, deploy and serve).
@@ -36,8 +45,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--experiment", required=True)
     parser.add_argument("--int8-graph", default=None, help="int8_graph.pkl (numpy leaves)")
-    parser.add_argument("--int8-executor", default="layer", choices=["layer", "fused"],
-                        help="layer: one kernel a layer (K1/K2); fused: one a block (K3/K4)")
+    parser.add_argument("--int8-executor", default="layer",
+                        choices=["layer", "fused", "carry", "weight-only"],
+                        help="layer: one kernel a layer (K1/K2); fused: one a block (K3/K4); "
+                             "carry: the int8-carry executor (K1/K2); weight-only: integer "
+                             "weights on bf16 activations")
     parser.add_argument("--int8-backend", default="cuda", choices=["cuda", "plain"])
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--selftest-frames", type=int, default=2048)
@@ -52,11 +64,9 @@ def build_server(args: argparse.Namespace):
     from spef_tpu_torch.data.camera import SPEED_CAMERA, load_camera
     from spef_tpu_torch.engine import build_predict_fn
     from spef_tpu_torch.models.wrapper import import_model
+    from spef_tpu_torch.quant.bitwidth import experiment_model_names
     from spef_tpu_torch.serving import PoseServer
 
-    if os.path.isfile(os.path.join(args.experiment, "model", "bit_width.json")):
-        raise NotImplementedError("QAT checkpoints (bit_width.json) need the quantized "
-                                  "models of ROADMAP §A, int8 graph front end")
     cfg = load_config(os.path.join(args.experiment, "config.yaml"))
     camera = load_camera(cfg.DATA.PATH) if os.path.exists(cfg.DATA.PATH) else SPEED_CAMERA
     spe_utils = SPEUtils.create(
@@ -73,27 +83,43 @@ def build_server(args: argparse.Namespace):
     img_size = tuple(cfg.DATA.IMG_SIZE)
 
     if args.int8_graph:
+        from spef_tpu_torch.quant.int8_carry import build_int8_carry_forward
         from spef_tpu_torch.quant.int8_cuda import build_cuda_forward
         from spef_tpu_torch.quant.int8_fused import build_fused_forward
         from spef_tpu_torch.quant.int8_graph import load_int8_graph
+        from spef_tpu_torch.quant.int8_model import build_weight_only_forward
 
         model = None
-        build = build_fused_forward if args.int8_executor == "fused" else build_cuda_forward
-        forward_fn = build(load_int8_graph(args.int8_graph), backend=args.int8_backend,
-                           device=args.device)
-        print(f"Serving int8 graph ({args.int8_executor} executor, {args.int8_backend} backend)")
+        graph = load_int8_graph(args.int8_graph)
+        if args.int8_executor == "weight-only":
+            forward_fn = build_weight_only_forward(graph, device=args.device)
+            backend = "plain PyTorch"
+        else:
+            build = {"layer": build_cuda_forward, "fused": build_fused_forward,
+                     "carry": build_int8_carry_forward}[args.int8_executor]
+            forward_fn = build(graph, backend=args.int8_backend, device=args.device)
+            backend = f"{args.int8_backend} backend"
+        print(f"Serving int8 graph ({args.int8_executor} executor, {backend})")
     else:
+        # A QAT checkpoint (model/bit_width.json) belongs to the quantized
+        # models: the configured names map to their _q forms.
+        backbone_name, head_name, bit_width = experiment_model_names(
+            args.experiment, cfg.MODEL.BACKBONE.NAME, cfg.MODEL.HEAD.NAME)
         model = import_model(
-            backbone_name=cfg.MODEL.BACKBONE.NAME,
-            head_name=cfg.MODEL.HEAD.NAME,
+            backbone_name=backbone_name,
+            head_name=head_name,
             params_path=os.path.join(args.experiment, "model", "parameters.msgpack"),
+            bit_width=bit_width,
             residual=cfg.MODEL.BACKBONE.RESIDUAL,
+            quantization=cfg.MODEL.QUANTIZATION or bit_width is not None,
             ori_mode=cfg.MODEL.HEAD.ORI,
             n_ori_bins=spe_utils.orientation.n_bins,
             pos_mode=cfg.MODEL.HEAD.POS,
             n_pos_bins=spe_utils.position.n_bins,
             device=args.device,
         )
+        if bit_width is not None:
+            print(f"Serving the QAT model ({backbone_name} + {head_name})")
         forward_fn = None
     predict = build_predict_fn(model, spe_utils, forward_fn=forward_fn)
     server = PoseServer(predict, img_shape=(*img_size, 3), max_batch=args.batch,

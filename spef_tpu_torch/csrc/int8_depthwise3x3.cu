@@ -14,6 +14,12 @@
 //   output  clip(rint(y * inv), 0, qmax) as int8 or as uint8 bits |
 //           bf16 y (no activation grid: out_inv_step=None)
 //
+// and the int8-carry executor's conventions (spef_tpu/quant/int8_carry.py)
+// as launch options: `div` rounds y / step, an IEEE division (__fdiv_rn), in
+// place of y * inv; `zp` (0 or 128) emits q - zp, an unsigned grid shifted
+// into int8; `halo` is what a tap outside the image reads (int8 input: -zp
+// of a shifted input, the shifted form of a real 0; else 0).
+//
 // Every product is exact in f32 (8-bit significands), and integer inputs
 // sum exactly; the plain PyTorch version sums the taps in the same order,
 // so real-valued inputs agree with it bit for bit too.  Rounding is rintf
@@ -71,7 +77,11 @@ struct Params {
   int out_mode, H, W, C, Ho, Wo;
   uint32_t groups, rows, strips, row_tiles, strip_len, total;
   uint32_t flip;  // 128: the input bytes are int8 values; 0: uint8 bits
+  uint32_t zp;    // an int8 output is q - zp
+  uint32_t halo_word;  // four bytes of the halo value (packed integer paths)
+  int div;        // requant by y / inv (inv holds the step) in place of y * inv
   float in_step, inv, qmax;
+  float halo;     // the halo value, decoded
 };
 
 __device__ __forceinline__ float decode_byte(uint32_t byte, uint32_t flip) {
@@ -87,9 +97,9 @@ template <int VEC>
 struct Px<false, VEC> {
   float v[VEC];
   __device__ __forceinline__ float get(int i, uint32_t) const { return v[i]; }
-  __device__ __forceinline__ void zero() {
+  __device__ __forceinline__ void fill(uint32_t, float f) {
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) v[i] = 0.0f;
+    for (int i = 0; i < VEC; ++i) v[i] = f;
   }
 };
 
@@ -99,9 +109,9 @@ struct Px<true, VEC> {
   __device__ __forceinline__ float get(int i, uint32_t flip) const {
     return decode_byte((q[i / 4] >> (8 * (i % 4))) & 255u, flip);
   }
-  __device__ __forceinline__ void zero() {
+  __device__ __forceinline__ void fill(uint32_t word, float) {
 #pragma unroll
-    for (int i = 0; i < VEC / 4; ++i) q[i] = 0u;
+    for (int i = 0; i < VEC / 4; ++i) q[i] = word;
   }
 };
 
@@ -219,7 +229,7 @@ __global__ void __launch_bounds__(THREADS, VEC > 8 ? 1 : 2) dw3x3_kernel(const P
   }
 
   // The three input rows of this output row; a row outside the image reads
-  // as zeros.
+  // as the halo.
   const Elem* row[3];
   bool row_ok[3];
 #pragma unroll
@@ -236,7 +246,7 @@ __global__ void __launch_bounds__(THREADS, VEC > 8 ? 1 : 2) dw3x3_kernel(const P
       if (col_ok && row_ok[dy]) {
         In::load(row[dy] + iw * p.C, col[dy], flip);
       } else {
-        col[dy].zero();
+        col[dy].fill(p.halo_word, p.halo);
       }
     }
   };
@@ -316,9 +326,11 @@ __global__ void __launch_bounds__(THREADS, VEC > 8 ? 1 : 2) dw3x3_kernel(const P
       uint32_t wds[VEC >= 4 ? OUT_WORDS_INT8 : 1] = {};
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
-        // uint8 bits above 127 wrap to the int8 of the same bits.
-        const float q = fminf(fmaxf(rintf(__fmul_rn(y[i], p.inv)), 0.0f), p.qmax);
-        const uint32_t byte = static_cast<uint32_t>(static_cast<int>(q)) & 255u;
+        // uint8 bits above 127 wrap to the int8 of the same bits; q - zp
+        // of a shifted grid is an int8 value.
+        const float v = p.div ? __fdiv_rn(y[i], p.inv) : __fmul_rn(y[i], p.inv);
+        const float q = fminf(fmaxf(rintf(v), 0.0f), p.qmax);
+        const uint32_t byte = (static_cast<uint32_t>(static_cast<int>(q)) - p.zp) & 255u;
         if constexpr (VEC >= 4) {
           wds[i / 4] |= byte << (8 * (i % 4));
         } else {
@@ -355,13 +367,18 @@ inline bool aligned(const void* ptr, int bytes) {
 
 }  // namespace
 
+// div: out_inv_step is the step, and the requant divides by it; zp: an int8
+// output is q - zp; halo: the value of the taps outside the image (int8
+// values in only).
 extern "C" int spef_int8_depthwise3x3(const void* x, int x_mode, const int8_t* w,
                                       const float* mult, const float* bias, void* out,
                                       int out_mode, int B, int H, int W, int C, int stride,
                                       float in_step, float out_inv_step, float out_qmax,
-                                      void* stream) {
+                                      int div, int zp, int halo, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || (stride != 1 && stride != 2) ||
-      x_mode < X_INT8 || x_mode > X_F32 || out_mode < OUT_INT8 || out_mode > OUT_BF16)
+      x_mode < X_INT8 || x_mode > X_F32 || out_mode < OUT_INT8 || out_mode > OUT_BF16 ||
+      (zp != 0 && zp != 128) || (zp != 0 && out_mode != OUT_INT8) || halo < -128 ||
+      halo > 127 || (halo != 0 && x_mode != X_INT8))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.x = x; p.w = w; p.mult = mult; p.bias = bias; p.out = out;
@@ -370,6 +387,10 @@ extern "C" int spef_int8_depthwise3x3(const void* x, int x_mode, const int8_t* w
   p.Wo = (W - 1) / stride + 1;
   p.in_step = in_step; p.inv = out_inv_step; p.qmax = out_qmax;
   p.flip = x_mode == X_BITS ? 0u : FLIP_SIGNED;
+  p.zp = static_cast<uint32_t>(zp);
+  p.div = div != 0;
+  p.halo = static_cast<float>(halo);
+  p.halo_word = (static_cast<uint32_t>(halo) & 255u) * 0x01010101u;
 
   // The widest channel group whose loads and stores are aligned.
   const int in_bytes = x_mode == X_F32 ? 4 : 1, out_bytes = out_mode == OUT_BF16 ? 2 : 1;

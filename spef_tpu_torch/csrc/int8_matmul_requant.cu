@@ -13,6 +13,12 @@
 //       | residual: q on the shared grid, s = q + res (exact),
 //         clip(rint(s * res_ratio), rqmin, rqmax)      (OUT_RES)
 //
+// The int8-carry executor's conventions (spef_tpu/quant/int8_carry.py) are
+// two launch options of the same epilogue: `div` rounds y / step, an IEEE
+// division (__fdiv_rn), in place of y * inv (the two differ by an ulp, and
+// so by a step at a tie); `zp` (0 or 128) emits q - zp, an unsigned grid
+// shifted into int8.
+//
 // Input modes: int8 values, uint8 bits carried in int8 (the bits are the
 // unsigned value, so the u8 form of the mma reads them as they are), or
 // bf16 real values (the boundary recipe's depthwise output).  Integer
@@ -103,6 +109,8 @@ struct Params {
   int off_w, off_x, off_stage;
   int w_stage_bytes, x_stage_bytes, stage_stride;
   int out_mode, relu;
+  int div;                // requant by y / inv (inv holds the step) in place of y * inv
+  int zp;                 // an int8 output is q - zp
   float inv, res_ratio;
   int qmin, qmax, rqmin, rqmax;  // the grids' bounds (integers: ceil of lo, floor of hi)
 };
@@ -279,6 +287,11 @@ __device__ __forceinline__ float acc_value(uint32_t a) {
 // the staging row at dst.  An int8 output leaves as the low byte of its
 // integer, which is also the uint8 bits of an unsigned grid.  OUT is
 // OUT_INT8 (for both int8 and bits), OUT_F32 or OUT_RES.
+// The value the requant rounds: y * inv, or y / step (inv holds the step).
+__device__ __forceinline__ float scaled(const Params& p, float y) {
+  return p.div ? __fdiv_rn(y, p.inv) : __fmul_rn(y, p.inv);
+}
+
 template <int MODE, int OUT>
 __device__ __forceinline__ void finish_pair(const Params& p, uint32_t a0, uint32_t a1, float2 m,
                                             float2 b, uint8_t* dst) {
@@ -290,8 +303,8 @@ __device__ __forceinline__ void finish_pair(const Params& p, uint32_t a0, uint32
     // never clamped to int8 in between (it spans twice the shared grid).
     // The residual was staged in the bytes these outputs go to.
     const char2 res = *reinterpret_cast<const char2*>(dst);
-    const int s0 = requant(__fmul_rn(y0, p.inv), p.qmin, p.qmax) + res.x;
-    const int s1 = requant(__fmul_rn(y1, p.inv), p.qmin, p.qmax) + res.y;
+    const int s0 = requant(scaled(p, y0), p.qmin, p.qmax) + res.x;
+    const int s1 = requant(scaled(p, y1), p.qmin, p.qmax) + res.y;
     q0 = requant(__fmul_rn(__int2float_rn(s0), p.res_ratio), p.rqmin, p.rqmax);
     q1 = requant(__fmul_rn(__int2float_rn(s1), p.res_ratio), p.rqmin, p.rqmax);
   } else {
@@ -303,8 +316,8 @@ __device__ __forceinline__ void finish_pair(const Params& p, uint32_t a0, uint32
       *reinterpret_cast<float2*>(dst) = make_float2(y0, y1);
       return;
     }
-    q0 = requant(__fmul_rn(y0, p.inv), p.qmin, p.qmax);
-    q1 = requant(__fmul_rn(y1, p.inv), p.qmin, p.qmax);
+    q0 = requant(scaled(p, y0), p.qmin, p.qmax) - p.zp;
+    q1 = requant(scaled(p, y1), p.qmin, p.qmax) - p.zp;
   }
   *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>((q0 & 0xFF) | ((q1 & 0xFF) << 8));
 }
@@ -538,13 +551,16 @@ int largest_piece(int64_t a, int64_t b, uintptr_t p, uintptr_t q) {
 
 // x (M, K) as x_mode says; w_packed (N, kpad) int8, or bf16 for bf16 x
 // (ops/int8_ops.py::pack_mm_weights), kpad a multiple of 32 at least K.
+// div: out_inv_step is the step, and the requant divides by it; zp: an
+// int8 output (OUT_INT8) is q - zp.
 extern "C" int spef_int8_matmul_requant(
     const void* x, int x_mode, const void* w_packed, int kpad, const float* mult,
     const float* bias, const int8_t* residual, void* out, int out_mode, int M, int N, int K,
     int relu, float out_inv_step, float out_qmin, float out_qmax, float res_ratio,
-    float res_qmin, float res_qmax, void* stream) {
+    float res_qmin, float res_qmax, int div, int zp, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || kpad < K || kpad % 32 != 0 || x_mode < 0 || x_mode > 2 ||
-      out_mode < 0 || out_mode > 3)
+      out_mode < 0 || out_mode > 3 || (zp != 0 && zp != 128) ||
+      (zp != 0 && out_mode != OUT_INT8))
     return static_cast<int>(cudaErrorInvalidValue);
   const int esize = x_mode == X_BF16 ? 2 : 1;
   Params p{};
@@ -575,6 +591,8 @@ extern "C" int spef_int8_matmul_requant(
   p.stage_stride = (nt * 8 * p.ob + 15) / 16 * 16 + 16;
   p.out_mode = out_mode;
   p.relu = relu;
+  p.div = div != 0;
+  p.zp = zp;
   p.inv = out_inv_step;
   p.res_ratio = res_ratio;
   // clip(q, lo, hi) of an integer q is clip(q, ceil(lo), floor(hi)).

@@ -45,6 +45,7 @@ class MobileNetV2(nn.Module):
     ):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.out_features = out_features
         kw = dict(batchnorm=batchnorm, compute_dtype=compute_dtype, generator=generator)
         in_ch = int(32 * width_mult)
         self.stem = ConvBnAct(3, in_ch, kernel_size=3, stride=2, padding=1, **kw)

@@ -3,16 +3,21 @@
 Counterpart of ``spef_tpu.models.wrapper``.  A model here is an ``nn.Module``
 that holds its weights; ``import_model`` builds it on a device (``cuda``
 unless the caller passes ``device="cpu"``) in eval mode, initialized from
-``seed`` and optionally loaded from a flax ``parameters.msgpack``.
+``seed`` and optionally loaded from a flax ``parameters.msgpack``;
+``save_model`` writes one (and the QAT models' ``bit_width.json``).
 
 ``load_flax_variables`` carries a flax variable tree (``params`` +
 ``batch_stats``, nested dicts of numpy arrays) onto the port's modules, whose
-attribute paths mirror the flax module names:
+attribute paths mirror the flax module names; ``flax_variables`` gives the
+tree back:
 
     conv kernel  HWIO (kh, kw, in/groups, out)  -> OIHW weight
     depthwise    (3, 3, 1, C)                    -> (C, 1, 3, 3)
     dense kernel (in, out)                       -> (out, in) weight
     BN scale / bias / mean / var                 -> weight / bias / running_*
+    any other leaf (the QAT models' log2_scale, their head's ori_fc_kernel
+    and ori_fc_bias, ...)                         -> a parameter of that name,
+                                                     in flax layout
 """
 
 from __future__ import annotations
@@ -23,25 +28,39 @@ import numpy as np
 import torch
 from torch import nn
 
-from spef_tpu_torch.models.flax_msgpack import read_flax_msgpack
+from spef_tpu_torch.models.flax_msgpack import read_flax_msgpack, write_flax_msgpack
 from spef_tpu_torch.models.heads import URSONetHead
 from spef_tpu_torch.models.mobilenet_v2 import MobileNetV2
 
-__all__ = ["ModelWrapper", "import_model", "load_flax_variables", "flax_state_dict"]
+__all__ = ["ModelWrapper", "import_model", "save_model", "load_flax_variables",
+           "flax_state_dict", "flax_variables", "resolve_names"]
 
 PARAMS_FILE = "parameters.msgpack"
 
-_BACKBONE_ALIASES = {"mobilenet_v2_pytorch": "mobilenet_v2"}
-_HEAD_ALIASES = {"ursonet_pytorch": "ursonet"}
+# Reference-name aliases (torch / brevitas naming), as ``spef_tpu``'s.
+_BACKBONE_ALIASES = {
+    "mobilenet_v2_pytorch": "mobilenet_v2",
+    "mobilenet_v2_brevitas": "mobilenet_v2_q",
+    "small_brevitas": "small_q",
+    "small_mobile_brevitas": "small_mobile_q",
+}
+_HEAD_ALIASES = {"ursonet_pytorch": "ursonet", "ursonet_brevitas": "ursonet_q"}
+
+
+def resolve_names(backbone_name: str, head_name: str) -> Tuple[str, str]:
+    return (_BACKBONE_ALIASES.get(backbone_name, backbone_name),
+            _HEAD_ALIASES.get(head_name, head_name))
 
 
 class ModelWrapper(nn.Module):
-    """features + head: NHWC float images -> (ori, pos) raw outputs."""
+    """features + head: NHWC float images -> (ori, pos) raw outputs.
+    ``bit_width`` is the QAT models' recipe (None for a float model)."""
 
-    def __init__(self, backbone: nn.Module, head: nn.Module):
+    def __init__(self, backbone: nn.Module, head: nn.Module, bit_width: Optional[dict] = None):
         super().__init__()
         self.backbone = backbone
         self.head = head
+        self.bit_width = bit_width
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.head(self.backbone(x))
@@ -55,8 +74,11 @@ def _leaf(name: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
         if value.ndim == 2:
             return "weight", value.T
         raise ValueError(f"kernel of rank {value.ndim}")
-    return {"scale": "weight", "bias": "bias", "mean": "running_mean",
-            "var": "running_var"}[name], value
+    return _RENAMED.get(name, name), value
+
+
+_RENAMED = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+_BATCH_STATS = {"running_mean": "mean", "running_var": "var"}
 
 
 def flax_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -76,6 +98,34 @@ def flax_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def flax_variables(model: nn.Module) -> Dict[str, Any]:
+    """The flax variable tree of ``model`` (``params`` + ``batch_stats``,
+    nested dicts of float32 numpy arrays): :func:`load_flax_variables`
+    inverted."""
+    tree: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for key, value in model.state_dict().items():
+        *path, attr = key.split(".")
+        if attr == "num_batches_tracked":
+            continue
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        parent = model.get_submodule(".".join(path))
+        norm = isinstance(parent, nn.modules.batchnorm._BatchNorm)
+        if attr in _BATCH_STATS:
+            collection, name = "batch_stats", _BATCH_STATS[attr]
+        elif attr == "weight" and norm:
+            collection, name = "params", "scale"
+        elif attr == "weight":
+            collection, name = "params", "kernel"
+            arr = np.transpose(arr, (2, 3, 1, 0)) if arr.ndim == 4 else arr.T
+        else:
+            collection, name = "params", attr
+        node = tree[collection]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[name] = np.array(arr, order="C")
+    return tree
+
+
 def load_flax_variables(model: nn.Module, variables: Dict[str, Any]) -> nn.Module:
     """Copy a flax variable tree into ``model`` (every parameter and BN
     statistic must be covered, and nothing else given)."""
@@ -92,8 +142,10 @@ def import_model(
     backbone_name: str = "mobilenet_v2",
     head_name: str = "ursonet",
     params_path: Optional[str] = None,
+    bit_width: Optional[dict] = None,
     batchnorm: bool = True,
     residual: bool = True,
+    quantization: bool = True,
     ori_mode: str = "classification",
     n_ori_bins: Optional[int] = None,
     pos_mode: str = "regression",
@@ -102,25 +154,57 @@ def import_model(
     device: Union[str, torch.device] = "cuda",
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> ModelWrapper:
-    """Build (and optionally load) a float model, in eval mode on ``device``.
+    """Build (and optionally load) a model, in eval mode on ``device``.
 
-    This slice covers ``mobilenet_v2`` + ``ursonet``; the quantized ``_q``
-    variants (ROADMAP §A, int8 graph front end) and the keypoint heads
-    (keypoints family) raise.
+    The float ``mobilenet_v2`` + ``ursonet`` (in ``compute_dtype``) and the
+    quantized ``_q`` models (``mobilenet_v2_q``, ``small_mobile_q``,
+    ``small_q`` + ``ursonet_q``, float32, fake-quantized by ``bit_width``
+    when ``quantization``), selected by the ``_q`` suffix as in the JAX
+    factory.  The keypoint heads come with the keypoints family (ROADMAP §A).
     """
-    backbone_name = _BACKBONE_ALIASES.get(backbone_name, backbone_name)
-    head_name = _HEAD_ALIASES.get(head_name, head_name)
-    if backbone_name != "mobilenet_v2" or head_name != "ursonet" or ori_mode == "keypoints":
+    backbone_name, head_name = resolve_names(backbone_name, head_name)
+    if ori_mode == "keypoints" or head_name not in ("ursonet", "ursonet_q"):
         raise NotImplementedError(
-            f"{backbone_name} + {head_name} ({ori_mode}) is not ported yet; the port has "
-            "mobilenet_v2 + ursonet (ROADMAP §A adds the rest)")
+            f"{head_name} ({ori_mode}) is not ported yet; the keypoint heads come with the "
+            "keypoints family (ROADMAP §A)")
     gen = torch.Generator().manual_seed(seed)
-    backbone = MobileNetV2(out_features=1280, batchnorm=batchnorm, residual=residual,
-                           compute_dtype=compute_dtype, generator=gen)
     n_ori = 4 if ori_mode == "regression" else int(n_ori_bins)
     n_pos = 3 if pos_mode == "regression" else int(n_pos_bins)
-    head = URSONetHead(1280, n_ori_outputs=n_ori, n_pos_outputs=n_pos, generator=gen)
-    model = ModelWrapper(backbone, head)
+    if backbone_name.endswith("_q"):
+        from spef_tpu_torch.quant.qmodels import build_quant_backbone
+
+        cfg = {"batchnorm": batchnorm, "residual": residual}
+        backbone = build_quant_backbone(backbone_name, cfg, bit_width, quantization, gen)
+    elif backbone_name == "mobilenet_v2":
+        backbone = MobileNetV2(out_features=1280, batchnorm=batchnorm, residual=residual,
+                               compute_dtype=compute_dtype, generator=gen)
+    else:
+        raise NotImplementedError(f"backbone {backbone_name} is not ported yet; the port has "
+                                  "mobilenet_v2 and the _q models")
+    if head_name == "ursonet_q":
+        from spef_tpu_torch.quant.qmodels import build_quant_head
+
+        head = build_quant_head(head_name, backbone.out_features, n_ori, n_pos, bit_width,
+                                quantization, gen)
+    else:
+        head = URSONetHead(backbone.out_features, n_ori_outputs=n_ori, n_pos_outputs=n_pos,
+                           generator=gen)
+    model = ModelWrapper(backbone, head, bit_width)
     if params_path is not None:
         load_flax_variables(model, read_flax_msgpack(params_path))
     return model.to(device=device, memory_format=torch.channels_last).eval()
+
+
+def save_model(save_folder: str, model: ModelWrapper, bit_width: Optional[dict] = None) -> str:
+    """Write ``parameters.msgpack`` (flax's format) and, for a QAT model,
+    ``bit_width.json`` into ``save_folder``; returns the parameters' path."""
+    import os
+
+    from spef_tpu_torch.quant.bitwidth import save_bit_width
+
+    os.makedirs(save_folder, exist_ok=True)
+    path = write_flax_msgpack(os.path.join(save_folder, PARAMS_FILE), flax_variables(model))
+    bw = bit_width if bit_width is not None else model.bit_width
+    if bw is not None:
+        save_bit_width(save_folder, bw)
+    return path

@@ -31,6 +31,20 @@ on its error, :func:`tie_mismatches` applies the rule and counts.
 K1 reads its weights as the tensor cores' B operand wants them,
 ``(N, K padded to 32)``, packed once when a forward is built
 (:func:`pack_mm_weights`).
+
+The int8-carry executor (``quant/int8_carry.py``) follows other conventions
+than ``int8_pallas``, and both kernels take them as options:
+
+  * ``out_step``: requantize by an IEEE division, ``round(y / out_step)``,
+    in place of the multiply by ``out_inv_step`` (the two differ by an ulp,
+    and so by a step at a tie);
+  * ``out_zp``: emit an unsigned grid shifted into int8, ``q - out_zp``
+    (``out_zp`` 128 for a grid of qmax 255; its consumer folds
+    ``128 * colsum(w)`` into its bias);
+  * ``halo`` (K2): the value the taps outside the image read, ``-zp`` for a
+    shifted input (the shifted form of a real 0).
+
+The defaults keep the ``int8_pallas`` behaviour.
 """
 
 from __future__ import annotations
@@ -54,12 +68,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-_MM_ARGTYPES = [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P]
+_MM_ARGTYPES = [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I,
+                _I, _P]
 # K1's weights are padded along K to the depth of one int8 mma (32).
 _MM_K_DEPTH = 32
 # Rows of x the rounding-input helper takes at once (float64 copies).
 _ROUNDING_CHUNK_ELEMS = 1 << 25
-_DW_ARGTYPES = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P]
+_DW_ARGTYPES = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P]
 
 
 def _encode_bits(q: torch.Tensor) -> torch.Tensor:
@@ -76,6 +91,29 @@ def _decode(x: torch.Tensor, in_unsigned: bool) -> torch.Tensor:
 def _f32(v: float) -> float:
     """A Python float rounded to float32 — what a kernel argument receives."""
     return float(np.float32(v))
+
+
+def _scaled(y: torch.Tensor, out_inv_step: Optional[float], out_step: Optional[float]
+            ) -> torch.Tensor:
+    """The value the requant rounds: ``y * out_inv_step``, or ``y / out_step``
+    as an IEEE division (a 0-d tensor: a CUDA tensor divided by a Python
+    scalar is multiplied by the reciprocal)."""
+    if out_step is not None:
+        return y / torch.tensor(_f32(out_step), dtype=torch.float32, device=y.device)
+    return y * _f32(out_inv_step)
+
+
+def _emit(q: torch.Tensor, out_bits: bool, out_zp: int) -> torch.Tensor:
+    """A requantized grid index ``q`` (float) as int8: its uint8 bits, or
+    ``q - out_zp``."""
+    return _encode_bits(q) if out_bits else (q - out_zp).to(torch.int8)
+
+
+def _check_carry_options(name: str, out_inv_step, out_step, out_zp: int, out_bits: bool) -> None:
+    if out_step is not None and out_inv_step is not None:
+        raise ValueError(f"{name}: give out_inv_step or out_step, not both")
+    if out_zp not in (0, 128) or (out_zp and out_bits):
+        raise ValueError(f"{name}: out_zp must be 0 or 128, and 0 with out_bits")
 
 
 # ---------------------------------------------------------------------------
@@ -114,32 +152,38 @@ def int8_matmul_requant_plain(
     in_unsigned: bool = False,
     out_bits: bool = False,
     packed: Optional[Dict[str, torch.Tensor]] = None,  # the kernel's copy; not read here
+    out_step: Optional[float] = None,  # requant by an IEEE division (the carry's)
+    out_zp: int = 0,  # emit q - out_zp (the carry's shifted unsigned grid)
 ) -> torch.Tensor:
     """Plain PyTorch version of K1 (same arithmetic, any device; bf16 input
     summed in k order)."""
+    _check_carry_options("int8_matmul_requant", out_inv_step, out_step, out_zp, out_bits)
     return _mm_epilogue(_mm_acc_plain(x, w, in_unsigned), mult, bias, residual, relu,
-                        out_inv_step, out_qmax, out_qmin, res_ratio, res_qmax, res_qmin, out_bits)
+                        out_inv_step, out_qmax, out_qmin, res_ratio, res_qmax, res_qmin, out_bits,
+                        out_step, out_zp)
 
 
 def _mm_epilogue(acc: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor,
                  residual: Optional[torch.Tensor], relu: bool, out_inv_step: Optional[float],
                  out_qmax: float, out_qmin: float, res_ratio: float, res_qmax: float,
-                 res_qmin: float, out_bits: bool) -> torch.Tensor:
+                 res_qmin: float, out_bits: bool, out_step: Optional[float] = None,
+                 out_zp: int = 0) -> torch.Tensor:
     """K1's epilogue on the float32 sums ``acc (M, N)``."""
     y = acc * mult
     y = y + bias
-    if residual is not None and out_inv_step is not None:
+    requant = out_inv_step is not None or out_step is not None
+    if residual is not None and requant:
         # Exact shared-grid sum, requantized straight to the consumer grid
         # (never clamped to int8 on the shared grid first).
-        q = torch.clamp(torch.round(y * _f32(out_inv_step)), out_qmin, out_qmax)
+        q = torch.clamp(torch.round(_scaled(y, out_inv_step, out_step)), out_qmin, out_qmax)
         s = q + residual.float()
         return torch.clamp(torch.round(s * _f32(res_ratio)), res_qmin, res_qmax).to(torch.int8)
     if relu:
         y = torch.clamp_min(y, 0.0)
-    if out_inv_step is None:
+    if not requant:
         return y
-    q = torch.clamp(torch.round(y * _f32(out_inv_step)), out_qmin, out_qmax)
-    return _encode_bits(q) if out_bits else q.to(torch.int8)
+    q = torch.clamp(torch.round(_scaled(y, out_inv_step, out_step)), out_qmin, out_qmax)
+    return _emit(q, out_bits, out_zp)
 
 
 def pack_mm_weights(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -172,11 +216,14 @@ def int8_matmul_requant_rounding_input(
     in_unsigned: bool = False,
     out_bits: bool = False,
     packed: Optional[Dict[str, torch.Tensor]] = None,
+    out_step: Optional[float] = None,
+    out_zp: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """The value K1 rounds last, and how far a sum taken in another order may
     be from it: ``(v, eps, step)``, ``v`` and ``eps`` float64 ``(M, N)``.
 
-    ``v`` is ``y * out_inv_step`` (``relu(y)`` first without a residual),
+    ``v`` is ``y * out_inv_step``, or ``y / out_step`` (``relu(y)`` first
+    without a residual),
     where ``y = acc * mult + bias`` with the sum ``acc`` taken in float64 and
     rounded once to float32, then the epilogue in float32 as the kernel does
     it.  A float32 sum of K exact products in any order is within
@@ -194,8 +241,11 @@ def int8_matmul_requant_rounding_input(
     ``eps`` from the plain version's, and ``step`` is 0.  Integer inputs
     sum exactly: every output then equals the plain version's.
     """
-    requant = out_inv_step is not None
-    scale = _f32(out_inv_step) if requant else 1.0
+    requant = out_inv_step is not None or out_step is not None
+    if out_step is not None:
+        scale = 1.0 / _f32(out_step)
+    else:
+        scale = _f32(out_inv_step) if requant else 1.0
     unit = 2.0 ** -24
     k = x.shape[1]
     wd = w.double()
@@ -210,7 +260,7 @@ def int8_matmul_requant_rounding_input(
         y = y + bias
         if relu and not (residual is not None and requant):
             y = torch.clamp_min(y, 0.0)
-        v = (y * scale if requant else y).double()
+        v = (_scaled(y, out_inv_step, out_step) if requant else y).double()
         vs.append(v)
         es.append((2.0 * k * unit * abs(scale)) * (xd.abs() @ wa) * mabs + 8.0 * unit * v.abs())
     if not requant:
@@ -250,18 +300,22 @@ def int8_matmul_requant(
     in_unsigned: bool = False,
     out_bits: bool = False,
     packed: Optional[Dict[str, torch.Tensor]] = None,
+    out_step: Optional[float] = None,
+    out_zp: int = 0,
 ) -> torch.Tensor:
     """K1: the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
 
-    Output: (M, N) int8 (bits when ``out_bits``), or f32 when
-    ``out_inv_step`` is None.  ``residual`` (int8 on the shared grid) selects
-    the projection + residual variant; it ignores ``relu``, like the JAX one.
-    ``packed`` is :func:`pack_mm_weights` of ``w``, made once by a built
-    forward; without it the weights are packed here, on every call.
+    Output: (M, N) int8 (bits when ``out_bits``, ``q - out_zp`` else), or
+    f32 when neither ``out_inv_step`` nor ``out_step`` is given.
+    ``residual`` (int8 on the shared grid) selects the projection + residual
+    variant; it ignores ``relu``, like the JAX one.  ``packed`` is
+    :func:`pack_mm_weights` of ``w``, made once by a built forward; without
+    it the weights are packed here, on every call.
     """
     kw = dict(residual=residual, relu=relu, out_inv_step=out_inv_step, out_qmax=out_qmax,
               out_qmin=out_qmin, res_ratio=res_ratio, res_qmax=res_qmax, res_qmin=res_qmin,
-              in_unsigned=in_unsigned, out_bits=out_bits)
+              in_unsigned=in_unsigned, out_bits=out_bits, out_step=out_step, out_zp=out_zp)
+    _check_carry_options("int8_matmul_requant", out_inv_step, out_step, out_zp, out_bits)
     if x.device.type == "cpu":
         return int8_matmul_requant_plain(x, w, mult, bias, packed=packed, **kw)
     if x.device.type != "cuda":
@@ -282,7 +336,8 @@ def int8_matmul_requant(
         if t.dtype != torch.float32 or t.shape != (n,):
             raise ValueError(f"int8_matmul_requant: {name} must be float32 ({n},)")
     tensors = [x, w, mult, bias]
-    if out_inv_step is None:
+    divide = out_step is not None
+    if out_inv_step is None and not divide:
         out_mode, out = 2, torch.empty(m, n, dtype=torch.float32, device=x.device)
     else:
         out = torch.empty(m, n, dtype=torch.int8, device=x.device)
@@ -310,8 +365,9 @@ def int8_matmul_requant(
     fn.argtypes, fn.restype = _MM_ARGTYPES, _I
     code = fn(x.data_ptr(), x_mode, wp.data_ptr(), kpad, mult.data_ptr(), bias.data_ptr(),
               residual.data_ptr() if out_mode == 3 else None, out.data_ptr(), out_mode,
-              m, n, k, int(relu), 0.0 if out_inv_step is None else out_inv_step,
-              out_qmin, out_qmax, res_ratio, res_qmin, res_qmax,
+              m, n, k, int(relu),
+              out_step if divide else (0.0 if out_inv_step is None else out_inv_step),
+              out_qmin, out_qmax, res_ratio, res_qmin, res_qmax, int(divide), out_zp,
               torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "int8_matmul_requant")
     int8_matmul_requant.launches += 1
@@ -337,15 +393,19 @@ def int8_depthwise3x3_plain(
     out_qmax: float = 127.0,
     in_unsigned: bool = False,
     out_bits: bool = False,
+    out_step: Optional[float] = None,  # requant by an IEEE division (the carry's)
+    out_zp: int = 0,  # emit q - out_zp (the carry's shifted unsigned grid)
+    halo: int = 0,  # what the taps outside the image read (int8 input only)
 ) -> torch.Tensor:
     """Plain PyTorch version of K2 (same arithmetic, any device)."""
+    _check_dw_options(x, out_inv_step, out_step, out_zp, out_bits, in_unsigned, halo)
     if x.dtype.is_floating_point:
         xf = x.to(torch.bfloat16).float()  # the bf16 operand cast of xla_depthwise3x3
     else:
         xf = _decode(x, in_unsigned)
     b, h, wd, c = xf.shape
     ho, wo = (h - 1) // stride + 1, (wd - 1) // stride + 1
-    xp = torch.nn.functional.pad(xf, (0, 0, 1, 1, 1, 1))
+    xp = torch.nn.functional.pad(xf, (0, 0, 1, 1, 1, 1), value=float(halo))
     wf = w.float()
     acc = torch.zeros(b, ho, wo, c, dtype=torch.float32, device=x.device)
     for dy in range(3):
@@ -354,10 +414,16 @@ def int8_depthwise3x3_plain(
             acc = acc + tap * wf[dy, dx]
     y = acc * (mult * _f32(in_step))
     y = torch.clamp_min(y + bias, 0.0)
-    if out_inv_step is None:
+    if out_inv_step is None and out_step is None:
         return y.to(torch.bfloat16)
-    q = torch.clamp(torch.round(y * _f32(out_inv_step)), 0.0, out_qmax)
-    return _encode_bits(q) if out_bits else q.to(torch.int8)
+    q = torch.clamp(torch.round(_scaled(y, out_inv_step, out_step)), 0.0, out_qmax)
+    return _emit(q, out_bits, out_zp)
+
+
+def _check_dw_options(x, out_inv_step, out_step, out_zp, out_bits, in_unsigned, halo) -> None:
+    _check_carry_options("int8_depthwise3x3", out_inv_step, out_step, out_zp, out_bits)
+    if halo and (x.dtype != torch.int8 or in_unsigned or not -128 <= halo <= 127):
+        raise ValueError("int8_depthwise3x3: a halo needs int8 values in, in [-128, 127]")
 
 
 def int8_depthwise3x3(
@@ -371,14 +437,19 @@ def int8_depthwise3x3(
     out_qmax: float = 127.0,
     in_unsigned: bool = False,
     out_bits: bool = False,
+    out_step: Optional[float] = None,
+    out_zp: int = 0,
+    halo: int = 0,
 ) -> torch.Tensor:
     """K2: the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
 
-    Output (B, Ho, Wo, C): int8 (bits when ``out_bits``), or bf16 when
-    ``out_inv_step`` is None.
+    Output (B, Ho, Wo, C): int8 (bits when ``out_bits``, ``q - out_zp``
+    else), or bf16 when neither ``out_inv_step`` nor ``out_step`` is given.
     """
     kw = dict(stride=stride, in_step=in_step, out_inv_step=out_inv_step, out_qmax=out_qmax,
-              in_unsigned=in_unsigned, out_bits=out_bits)
+              in_unsigned=in_unsigned, out_bits=out_bits, out_step=out_step, out_zp=out_zp,
+              halo=halo)
+    _check_dw_options(x, out_inv_step, out_step, out_zp, out_bits, in_unsigned, halo)
     if x.device.type == "cpu":
         return int8_depthwise3x3_plain(x, w, mult, bias, **kw)
     if x.device.type != "cuda":
@@ -401,7 +472,8 @@ def int8_depthwise3x3(
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("int8_depthwise3x3: operands must be contiguous, on one device")
     ho, wo = (h - 1) // stride + 1, (wd - 1) // stride + 1
-    if out_inv_step is None:
+    divide = out_step is not None
+    if out_inv_step is None and not divide:
         out_mode, dtype = 2, torch.bfloat16
     else:
         out_mode, dtype = (1 if out_bits else 0), torch.int8
@@ -411,8 +483,8 @@ def int8_depthwise3x3(
     fn.argtypes, fn.restype = _DW_ARGTYPES, _I
     code = fn(x.data_ptr(), x_mode, w.data_ptr(), mult.data_ptr(), bias.data_ptr(),
               out.data_ptr(), out_mode, b, h, wd, c, stride, in_step,
-              1.0 if out_inv_step is None else out_inv_step, out_qmax,
-              torch.cuda.current_stream(x.device).cuda_stream)
+              out_step if divide else (1.0 if out_inv_step is None else out_inv_step), out_qmax,
+              int(divide), out_zp, halo, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "int8_depthwise3x3")
     int8_depthwise3x3.launches += 1
     return out

@@ -29,7 +29,6 @@ launches.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Any, Callable, Dict, List, Tuple, Union
 
 import numpy as np
@@ -52,19 +51,9 @@ from spef_tpu_torch.quant.int8_graph import (
     scalars,
     true_div,
 )
+from spef_tpu_torch.quant.int8_model import f32_convs
 
 __all__ = ["build_cuda_forward", "load_int8_graph"]
-
-
-@contextlib.contextmanager
-def _no_tf32_convs():
-    """float32 convolutions in float32 (cuDNN defaults to TF32)."""
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved
 
 
 def build_cuda_forward(
@@ -205,7 +194,7 @@ def build_cuda_forward(
         # Stem: bf16-rounded inputs, f32 products and sums (exact products,
         # TF32 off), then requant — a bf16-output conv would lose bits first.
         xb = x.to(torch.bfloat16).float().permute(0, 3, 1, 2)
-        with _no_tf32_convs():
+        with f32_convs():
             y = torch.nn.functional.conv2d(xb, stem_plan["w"], stride=2, padding=1)
         y = y.permute(0, 2, 3, 1)
         y = torch.clamp_min(y * stem_plan["mult"] + stem_plan["bias"], 0.0)

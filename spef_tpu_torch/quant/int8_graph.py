@@ -111,14 +111,17 @@ def requant_signed(y: torch.Tensor, ratio: float, qmax: float,
     return torch.clamp(torch.round(yf * ratio), -qmax - 1, qmax).to(torch.int8)
 
 
-def build_head_tail(head: Dict[str, Any], head_step: float, tensor: TensorFn
+def build_head_tail(head: Dict[str, Any], head_step: float, tensor: TensorFn,
+                    zp: float = 0.0
                     ) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
     """The head after the head conv: ``y (B, h, w, C)`` integers on the
-    ``head_step`` grid -> ``(ori, pos)`` logits.
+    ``head_step`` grid, stored shifted by ``zp`` (the int8 carry's unsigned
+    grids) -> ``(ori, pos)`` logits.
 
-    Int sum -> f32 mean (a multiply by 1/n, as ``jnp.mean``) -> pool grid
-    (a true division) -> int8 FC, summed exactly in float64 (K = 1280
-    products of int8 pass 2^24, where float32 sums stop being exact).
+    Int sum -> f32 mean (a multiply by 1/n, as ``jnp.mean``) -> ``(mean +
+    zp) * step`` -> pool grid (a true division) -> int8 FC, summed exactly in
+    float64 (K = 1280 products of int8 pass 2^24, where float32 sums stop
+    being exact).
     """
     pool_step, pool_qmax = float(head["pool_step"]), float(head["pool_qmax"])
 
@@ -133,7 +136,7 @@ def build_head_tail(head: Dict[str, Any], head_step: float, tensor: TensorFn
     def tail(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         _, h, w, _ = y.shape
         pooled = y.float().sum(dim=(1, 2)) * float(np.float32(1.0 / (h * w)))
-        pooled = pooled * head_step
+        pooled = (pooled + zp) * head_step
         p_int = torch.clamp(torch.round(true_div(pooled, pool_step)), -pool_qmax - 1,
                             pool_qmax).double()
         ori, pos = ((p_int @ w_int).float() * scale + bias for w_int, scale, bias in fcs)

@@ -69,6 +69,14 @@ MM_CASES = {
     "bf16_in_residual": (torch.bfloat16, dict(relu=False, out_inv_step=4.0, out_qmax=7.0,
                                               out_qmin=-8.0, res_ratio=0.75)),
     "bf16_in_f32_out": (torch.bfloat16, dict(relu=True, out_inv_step=None)),
+    # the int8 carry's conventions: requant by division, a shifted emit
+    "carry_div_shifted_out": (torch.int8, dict(relu=True, out_inv_step=None, out_step=0.125,
+                                               out_qmax=255.0, out_zp=128)),
+    "carry_div_residual": (torch.int8, dict(relu=False, out_inv_step=None, out_step=0.25,
+                                            out_qmax=127.0, out_qmin=-128.0, res_ratio=1.0,
+                                            res_qmax=127.0, res_qmin=-128.0)),
+    "carry_bf16_in_div": (torch.bfloat16, dict(relu=False, out_inv_step=None, out_step=0.5,
+                                               out_qmin=-128.0)),
 }
 
 
@@ -113,6 +121,14 @@ DW_CASES = {
     "s1_bf16_out": (1, torch.int8, dict(out_inv_step=None)),
     "s2_real_in_bf16_out": (2, torch.float32, dict(out_inv_step=None, in_step=1.0)),
     "s1_real_in_int8_out": (1, torch.float32, dict(out_inv_step=6.0, in_step=1.0)),
+    # the int8 carry's conventions: a shifted input padded with -128, requant
+    # by division, a shifted unsigned emit
+    "s1_carry_halo_div_shifted_out": (1, torch.int8, dict(out_inv_step=None, out_step=0.1,
+                                                          out_qmax=255.0, out_zp=128,
+                                                          halo=-128)),
+    "s2_carry_halo_div": (2, torch.int8, dict(out_inv_step=None, out_step=0.2, halo=-128)),
+    "s2_carry_real_in_div_shifted_out": (2, torch.float32, dict(
+        out_inv_step=None, out_step=0.1, in_step=1.0, out_qmax=255.0, out_zp=128)),
 }
 
 
@@ -423,3 +439,78 @@ def test_flagship_fused_forward_kernels_match_plain(dev):
     assert len(calls) == 17
     for x, wts, kw in calls:
         _k4_same(fused_mbconv(x, wts, **kw), x, wts, kw)
+
+
+def test_flagship_carry_forward_kernels_match_plain(dev):
+    """The int8-carry executor on the boundary-recipe flagship graph, batch 4
+    at 240x384: 34 K1 and 17 K2 launches a forward, logits within 0.3 of
+    the plain backend's (K1's ties at the bf16 projections), and each call
+    held to its contract at the input the forward gave it."""
+    import spef_tpu_torch.quant.int8_carry as int8_carry
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    graph = load_int8_graph(os.path.join(repo, "spef_tpu_torch", "assets",
+                                         "flagship_boundary_int8_graph.pkl"))
+    frames = torch.from_numpy(
+        np.random.RandomState(0).randint(0, 256, (4, 240, 384, 3), np.uint8)).to(dev)
+    fwd = int8_carry.build_int8_carry_forward(graph, backend="cuda", device=dev)
+    assert fwd.launches_per_call == {"int8_matmul_requant": 34, "int8_depthwise3x3": 17}
+    before = (int8_matmul_requant.launches, int8_depthwise3x3.launches)
+    got = fwd(frames)
+    torch.cuda.synchronize()
+    assert (int8_matmul_requant.launches - before[0],
+            int8_depthwise3x3.launches - before[1]) == (34, 17)
+    want = int8_carry.build_int8_carry_forward(graph, backend="plain", device=dev)(frames)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert float((a - b).abs().max()) < 0.3
+
+    calls = []
+
+    def recorder(fn):
+        def rec(*args, **kw):
+            calls.append((fn, args, kw))
+            return fn(*args, **kw)
+        return rec
+
+    saved = (int8_carry.int8_matmul_requant, int8_carry.int8_depthwise3x3)
+    int8_carry.int8_matmul_requant, int8_carry.int8_depthwise3x3 = map(recorder, saved)
+    try:
+        recorded = int8_carry.build_int8_carry_forward(graph, backend="cuda", device=dev)
+    finally:
+        int8_carry.int8_matmul_requant, int8_carry.int8_depthwise3x3 = saved
+    recorded(frames)
+    assert len(calls) == 51
+    halos = 0
+    for fn, args, kw in calls:
+        out = fn(*args, **kw)
+        if fn is int8_depthwise3x3:
+            halos += kw["halo"] != 0
+            _same(out, int8_depthwise3x3_plain(*args, **kw))
+        else:
+            _, _, step = check_mm(out, args, kw)  # bit for bit with integer input
+            assert step <= 1
+    assert halos == 1  # block 0 reads the stem's shifted unsigned grid
+
+
+def test_carry_forward_bit_for_bit_on_an_integer_recipe(dev):
+    """On a recipe whose every sum is an integer (w8a8: unsigned 8-bit grids
+    carried shifted, padded with -128) the carry executor on the kernels
+    gives the plain backend's logits bit for bit."""
+    from spef_tpu_torch.models.wrapper import import_model
+    from spef_tpu_torch.quant.bitwidth import default_bit_width
+    from spef_tpu_torch.quant.convert import convert_qat_params
+    from spef_tpu_torch.quant.int8_carry import build_int8_carry_forward
+
+    bw = default_bit_width(n_blocks=17, w=8, a=8, shared=8)
+    bw["inverted_residual"][0] = [(8, 8), (8, 8), (8,)]
+    model = import_model("mobilenet_v2_q", "ursonet_q", bit_width=bw, ori_mode="classification",
+                         n_ori_bins=64, pos_mode="regression", device="cpu", seed=5)
+    graph = convert_qat_params(model)
+    frames = torch.from_numpy(
+        np.random.RandomState(1).randint(0, 256, (2, 64, 96, 3), np.uint8)).to(dev)
+    got = build_int8_carry_forward(graph, backend="cuda", device=dev)(frames)
+    want = build_int8_carry_forward(graph, backend="plain", device=dev)(frames)
+    for a, b in zip(got, want):
+        _same(a, b)
