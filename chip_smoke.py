@@ -47,7 +47,8 @@ each printed on its own lines; any failure exits nonzero:
   6. the int8 build chain at full width: the flagship's float checkpoint
      into its boundary-recipe QAT twin (``copy_params``), converted
      (``convert_qat_params``) and calibrated on the card (``calibrate_graph``
-     on the 32 frames ``render_frame`` gives for seed 0, batches of 8); the
+     on the 32 frames ``render_frame`` gives for seed 0, in the dataset's
+     channel order, batches of 8); the
      graph held against the committed asset (structure, ``w_int``, qmax,
      strides, ``mult_core`` and ``bias`` identical; every step within one
      histogram bin, the largest difference printed);
@@ -60,16 +61,34 @@ each printed on its own lines; any failure exits nonzero:
      request p50 of 8 (host clock), frames/s, the carry forward alone (CUDA
      events); its logits within 0.3 of the plain backend's and of the
      ``layer`` executor's on the same graph, its distances from
-     ``int8_forward`` and the QAT forward printed; then ``bench.py``'s
-     construction once (a random-init ``_q`` model at 256x256, boundary
-     recipe, carry + decode, batch 256), its frames/s printed;
-  8. each kernel at its path's own inputs (batch 256): mismatches (K1's
+     ``int8_forward`` and the QAT forward printed;
+  8. accuracy on the flagship's test split: the 2,000 D-SPEED test frames
+     (240x384, seed 1001) written by the port's writer
+     (``data/synthetic.py::_create_test_split``: the 22,000 earlier frames'
+     draws replayed, the frames rendered and written as PNG by worker
+     processes) into ``build/`` and removed at the end; the float flagship
+     evaluated by ``python -m spef_tpu_torch.apps.eval`` on them (its test
+     ESA within 0.002 of the recorded ``eval_score_error.json``); the
+     committed int8 graph evaluated on the same loader batches by the
+     ``layer``, ``fused`` and ``carry`` executors on the kernels, the
+     counters set to 0 before each and read after (per-forward launches
+     times the batches); the carry's ESA within 0.003 of JAX's
+     ``int8_carry`` on the same graph and frames
+     (``spef_tpu_torch/assets/flagship_test_esa.json``), ``layer``'s and
+     ``fused``'s within 0.01 of the carry's; the per-frame pose distances
+     between executors (mean, p99, max, in degrees and metres); each
+     executor's kernels within 0.3 logit of its plain backend on the first
+     256 test frames; the seconds of each step and the PNG decode time a
+     frame; then ``bench.py``'s construction once (a random-init ``_q``
+     model at 256x256, boundary recipe, carry + decode, batch 256), its
+     frames/s printed;
+  9. each kernel at its path's own inputs (batch 256): mismatches (K1's
      bf16-input calls and K4 under the tie rule, at most one step; any
      mismatch of an integer-input call fails), kernel / plain / library time
      (CUDA events) and its bound, printed as one ``{"kernels": [...]}`` JSON
      line of four entries; K1's one call on the fused path (the head conv)
      is timed apart, and K1's and K2's calls on the carry path;
-  9. the last line: ``{"ok": true, "device": {...}}``.
+ 10. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, where ``torch.cuda.is_available()`` is
 false or the package is missing.
@@ -988,7 +1007,8 @@ def phase_build(torch, np, dev):
     """The flagship's boundary-recipe int8 graph built on the card from its
     float checkpoint: the QAT twin (``mobilenet_v2_q`` + ``ursonet_q``),
     ``copy_params``, ``convert_qat_params``, ``calibrate_graph`` on the 32
-    frames ``render_frame`` gives for seed 0, in batches of 8; then held
+    frames ``render_frame`` gives for seed 0 (in the dataset's channel
+    order, RGB), in batches of 8; then held
     against the committed asset (``compare_graphs``)."""
     from spef_tpu_torch.data.synthetic import generate_positions, render_frame
     from spef_tpu_torch.models.flax_msgpack import read_flax_msgpack
@@ -1009,7 +1029,9 @@ def phase_build(torch, np, dev):
     t1 = time.perf_counter()
     rng = np.random.RandomState(0)
     oris, poss = generate_positions(rng, 32)
-    calib = np.stack([render_frame(q, p, img_size=(240, 384), rng=rng)
+    # In the dataset's channel order: render_frame gives OpenCV's BGR, the
+    # dataset stores it as RGB, which is what the model was trained on.
+    calib = np.stack([render_frame(q, p, img_size=(240, 384), rng=rng)[..., ::-1]
                       for q, p in zip(oris, poss)])
     t2 = time.perf_counter()
     graph, amaxes = calibrate_graph(graph, (calib[i:i + 8] for i in range(0, 32, 8)),
@@ -1161,6 +1183,184 @@ def phase_carry(torch, np, dev, frames, exp_dir, graph):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Accuracy on the flagship's test split
+# ---------------------------------------------------------------------------
+
+# The flagship's D-SPEED split (experiments/gen_dataset.sh): the test split
+# follows 20,000 train and 2,000 valid frames at 240x384, seed 1001.
+SPLIT = {"n_train": 20000, "n_valid": 2000, "n_test": 2000}
+EVAL_BATCH = 32  # apps.eval's default
+FLOAT_ESA_TOL = 0.002  # against the recorded eval_score_error.json
+CARRY_ESA_TOL = 0.003  # against JAX's int8_carry on the same graph and frames
+EXECUTOR_ESA_TOL = 0.01  # layer's and fused's against the carry's
+ESA_RECORD = os.path.join(REPO, "spef_tpu_torch", "assets", "flagship_test_esa.json")
+
+
+class _PoseRecorder:
+    """An engine that keeps every pose its engine returns (device tensors
+    moved to the host), for the per-frame distances between executors."""
+
+    def __init__(self, engine):
+        self.engine, self.ori, self.pos = engine, [], []
+
+    def predict(self, images):
+        pose, ms = self.engine.predict(images)
+        self.ori.append(pose["ori"].cpu())
+        self.pos.append(pose["pos"].cpu())
+        return pose, ms
+
+
+def _timed(label, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    log(f"[accuracy] {label}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def phase_accuracy(torch, np, dev):
+    """The flagship's test split written and loaded through the port's writer
+    and loader; the float flagship evaluated by ``apps.eval`` and the
+    committed int8 graph by the three executors on the kernels; each ESA
+    held to its reference; the executors' per-frame pose distances; each
+    executor's kernels within 0.3 logit of its plain backend on 256 of
+    these frames.  Every number is printed before a gate that failed is
+    raised.  Returns {executor: launches over its evaluation}."""
+    from spef_tpu_torch.apps import eval as eval_app
+    from spef_tpu_torch.codec.facade import SPEUtils
+    from spef_tpu_torch.data.camera import load_camera
+    from spef_tpu_torch.data.dataset import load_dataset
+    from spef_tpu_torch.data.png import _unfilter_wavefront, read_png
+    from spef_tpu_torch.data.synthetic import _create_test_split
+    from spef_tpu_torch.engine import SPETorch
+    from spef_tpu_torch.quant.int8_carry import build_int8_carry_forward
+    from spef_tpu_torch.quant.int8_cuda import build_cuda_forward
+    from spef_tpu_torch.quant.int8_fused import build_fused_forward
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph
+    from spef_tpu_torch.train.trainer import evaluation
+
+    with open(os.path.join(FLAGSHIP, "eval_score_error.json")) as f:
+        recorded = json.load(f)["scores"]["test"]["esa"][0]
+    with open(ESA_RECORD) as f:
+        jax_record = json.load(f)
+    root = os.path.join(REPO, "build", f"chip_smoke_dspeed_{os.getpid()}")
+    split = SPLIT
+    try:
+        workers = max(1, min(8, (os.cpu_count() or 1) - 1))
+        still = _timed(
+            f"test split written ({split['n_test']} frames at 240x384, seed 1001, the "
+            f"{split['n_train']} + {split['n_valid']} earlier frames' draws replayed; "
+            f"{workers} render processes)",
+            lambda: _create_test_split(root, img_size=(240, 384), seed=1001, workers=workers,
+                                       **split))
+        files = sorted(os.listdir(os.path.join(still, "test", "images")))[:100]
+        t0 = time.perf_counter()
+        for name in files:
+            read_png(os.path.join(still, "test", "images", name))
+        log(f"[accuracy] PNG decode: {(time.perf_counter() - t0) / len(files) * 1e3:.3f} ms a "
+            f"240x384 frame (mean of {len(files)}, one thread)")
+        # Files of other writers (PIL's adaptive filters) hold Average and
+        # Paeth rows, which take the anti-diagonal path; its time does not
+        # depend on the data.
+        rows = np.random.RandomState(0).randint(0, 256, (240, 384 * 3)).astype(np.uint8)
+        t0 = time.perf_counter()
+        _unfilter_wavefront(rows, np.full(240, 4, np.uint8), 3)
+        log(f"[accuracy] PNG unfilter of a 240x384 frame of Paeth rows (anti-diagonals): "
+            f"{(time.perf_counter() - t0) * 1e3:.3f} ms, one thread")
+
+        # Float: the flagship through apps.eval, as a user runs it.  The
+        # experiment is a copy whose model/ is the flagship's, so the scores
+        # it writes land there.
+        exp = os.path.join(root, "exp_dspeed_synth")
+        os.makedirs(exp)
+        shutil.copy(os.path.join(FLAGSHIP, "config.yaml"), exp)
+        os.symlink(os.path.join(FLAGSHIP, "model"), os.path.join(exp, "model"))
+        _reset_counters()
+        score, error = _timed(
+            "float flagship: python -m spef_tpu_torch.apps.eval (load, forward, score)",
+            lambda: eval_app.main(["--experiment", exp, "--data", still]))
+        _read_counters("accuracy:float", 0, {})
+        with open(os.path.join(exp, "eval_score_error.json")) as f:
+            written = json.load(f)
+        assert written["scores"]["test"]["esa"][0] == score["test"]["esa"][0]
+        assert os.path.isfile(os.path.join(exp, "eval_score_error_scores.csv"))
+        float_esa = score["test"]["esa"][0]
+        log(f"[accuracy] float test ESA {float_esa:.6f} (recorded {recorded:.6f}, JAX on the "
+            f"CPU over these frames {jax_record['float']['esa']:.6f}), ori "
+            f"{error['test']['ori'][0]:.3f} deg, pos {error['test']['pos'][0]:.4f} m")
+        failed = []
+        if abs(float_esa - recorded) > FLOAT_ESA_TOL:
+            failed.append(f"float test ESA {float_esa} is {abs(float_esa - recorded):.5f} from "
+                          f"the recorded {recorded} (at most {FLOAT_ESA_TOL})")
+
+        # Int8: the committed graph on the same loader batches.
+        data, splits = load_dataset(still, EVAL_BATCH, (240, 384))
+        assert splits["eval"] == ("test",), splits
+        batches = _timed(f"test split loaded ({len(data['test'])} batches of "
+                               f"{EVAL_BATCH})", lambda: list(data["test"]))
+        n = int(sum(b["mask"].sum() for b in batches))
+        assert n == split["n_test"], n
+        graph = load_int8_graph(ASSET)
+        utils = SPEUtils.create(load_camera(still), ori_mode="classification",
+                                pos_mode="classification", device=dev)
+        executors = {"layer": (build_cuda_forward, LAYER_LAUNCHES),
+                     "fused": (build_fused_forward, FUSED_LAUNCHES),
+                     "carry": (build_int8_carry_forward, CARRY_LAUNCHES)}
+        esa, poses, launches = {}, {}, {}
+        for name, (build, per_forward) in executors.items():
+            rec = _PoseRecorder(SPETorch(None, utils, forward_fn=build(graph, backend="cuda",
+                                                                       device=dev), device=dev))
+            _reset_counters()
+            score, error = _timed(f"{name} executor: evaluation over the test split",
+                                        lambda: evaluation(rec, {"test": batches}, utils,
+                                                           ("test",)))
+            launches[name] = _read_counters(f"accuracy:{name}", len(batches), per_forward)
+            esa[name] = score["test"]["esa"][0]
+            poses[name] = (torch.cat(rec.ori)[:n].numpy(), torch.cat(rec.pos)[:n].numpy())
+            log(f"[accuracy] {name} test ESA {esa[name]:.6f}, ori {error['test']['ori'][0]:.3f} "
+                f"deg, pos {error['test']['pos'][0]:.4f} m")
+        for a, b in (("layer", "carry"), ("fused", "carry"), ("layer", "fused")):
+            dot = np.clip(np.abs((poses[a][0] * poses[b][0]).sum(-1)), 0.0, 1.0)
+            ang = 2.0 * np.degrees(np.arccos(dot))
+            dist = np.linalg.norm(poses[a][1] - poses[b][1], axis=-1)
+            log(f"[accuracy] {a} vs {b} over {n} frames: orientation mean {ang.mean():.4f} deg, "
+                f"p99 {np.percentile(ang, 99):.4f}, max {ang.max():.4f}; position mean "
+                f"{dist.mean():.5f} m, p99 {np.percentile(dist, 99):.5f}, max {dist.max():.5f}")
+        jax_carry = jax_record["int8_carry"]["esa"]
+        log(f"[accuracy] carry {esa['carry']:.6f} vs JAX int8_carry {jax_carry:.6f} "
+            f"(d {abs(esa['carry'] - jax_carry):.6f}, at most {CARRY_ESA_TOL}); layer d "
+            f"{abs(esa['layer'] - esa['carry']):.6f}, fused d "
+            f"{abs(esa['fused'] - esa['carry']):.6f} from the carry (at most {EXECUTOR_ESA_TOL})")
+
+        # The 0.3-logit gate of phases 4, 5 and 7, on 256 rendered frames.
+        x = torch.from_numpy(np.concatenate([b["images"] for b in batches])[:BATCH]).to(dev)
+        for name, (build, _) in executors.items():
+            got = build(graph, backend="cuda", device=dev)(x)
+            want = build(graph, backend="plain", device=dev)(x)
+            torch.cuda.synchronize()
+            pose_of = lambda lg: {k: v.cpu().numpy() for k, v in utils.decode(  # noqa: E731
+                utils.last_activ({"ori_soft": lg[0], "pos_soft": lg[1]})).items()}
+            d = log_distance(np, f"accuracy:{name}", "kernels vs plain backend on the first test "
+                             "frames", (pose_of(got), got), (pose_of(want), want))
+            if not d < 0.3:
+                failed.append(f"{name}: kernels {d} in logits from the plain backend on "
+                              f"rendered frames (at most 0.3)")
+        if abs(esa["carry"] - jax_carry) > CARRY_ESA_TOL:
+            failed.append(f"carry test ESA {esa['carry']} is "
+                          f"{abs(esa['carry'] - jax_carry):.5f} from JAX's {jax_carry} "
+                          f"(at most {CARRY_ESA_TOL})")
+        for name in ("layer", "fused"):
+            if abs(esa[name] - esa["carry"]) > EXECUTOR_ESA_TOL:
+                failed.append(f"{name} test ESA {esa[name]} is "
+                              f"{abs(esa[name] - esa['carry']):.5f} from the carry's (at most "
+                              f"{EXECUTOR_ESA_TOL})")
+        if failed:
+            raise AssertionError("accuracy gates failed: " + "; ".join(failed))
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_bench_construction(torch, np, dev):
     """``bench.py``'s construction on the port: a random-init ``_q`` model at
     256x256, the boundary recipe, converted, served by the int8-carry
@@ -1228,6 +1428,7 @@ def main() -> int:
         carry_launches = phase_carry(torch, np, dev, frames, exp_dir, graph)
     finally:
         shutil.rmtree(exp_dir, ignore_errors=True)
+    accuracy_launches = phase_accuracy(torch, np, dev)
     phase_bench_construction(torch, np, dev)
     layer_launches, fused_launches = layer[0], fused[0]
     # K1 and K2 are on three paths: their rows keep the layer executor's
@@ -1240,6 +1441,10 @@ def main() -> int:
         if row["name"] in CARRY_LAUNCHES:
             # serve --int8-executor carry --batch 256, 9 forwards (phase_carry)
             row["launches_carry_path"] = carry_launches[row["name"]]
+        # the test split's evaluation by each executor (phase_accuracy)
+        row["launches_accuracy_path"] = {
+            name: counts[row["name"]] for name, counts in accuracy_launches.items()
+            if counts[row["name"]]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,118 @@
+"""Evaluation CLI — one model on a dataset's eval splits, on one GPU.
+
+Counterpart of ``spef_tpu.apps.eval``: loads a trained experiment (float
+checkpoint, or a QAT one: ``model/bit_width.json`` beside the weights
+selects the quantized ``_q`` models), evaluates it on the dataset's eval
+splits, prints one line a split and writes ``eval_score_error.json`` with
+its CSVs into the experiment directory.
+
+Usage:
+    python -m spef_tpu_torch.apps.eval --experiment experiments/train_synth/exp_dspeed_synth \\
+        [--data /path/to/dspeed/still] [--batch-size 32] [--device cuda]
+
+It runs on the card; ``--device cpu`` runs it on the CPU.  The decoded-split
+cache (``--cache-dataset``) comes with training (ROADMAP §A, item 6); the
+keypoint decodes (``--ransac``, ``--border-gate``, ``--crop-refine``) with
+the keypoints family (item 8).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import List, Optional
+
+import torch
+
+__all__ = ["main", "parse_args"]
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--experiment", required=True, help="trained experiment dir")
+    parser.add_argument("--data", default=None, help="dataset path override")
+    parser.add_argument("--batch-size", type=int, default=32)
+    parser.add_argument("--seed", type=int, default=1001)
+    parser.add_argument("--cache-dataset", action="store_true",
+                        help="not ported yet (ROADMAP §A, item 6)")
+    parser.add_argument("--ransac", action="store_true",
+                        help="keypoints mode: not ported yet (ROADMAP §A, item 8)")
+    parser.add_argument("--border-gate", type=float, default=None,
+                        help="keypoints mode: not ported yet (ROADMAP §A, item 8)")
+    parser.add_argument("--crop-refine", default=None, metavar="FINE_EXP",
+                        help="keypoints mode: not ported yet (ROADMAP §A, item 8)")
+    parser.add_argument("--device", default="cuda")
+    return parser.parse_args(argv)
+
+
+def main(argv: Optional[List[str]] = None):
+    """Evaluate; returns ``(rec_score, rec_error)`` as ``save_score_error`` writes them."""
+    args = parse_args(argv)
+    if args.cache_dataset:
+        raise NotImplementedError("--cache-dataset: the decoded-split cache is not ported yet "
+                                  "(ROADMAP §A, item 6)")
+    if args.ransac or args.border_gate is not None or args.crop_refine:
+        raise NotImplementedError("--ransac, --border-gate and --crop-refine: the keypoints "
+                                  "family is not ported yet (ROADMAP §A, item 8)")
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to evaluate on the CPU")
+
+    from spef_tpu_torch.codec.facade import SPEUtils
+    from spef_tpu_torch.config.train_config import load_config
+    from spef_tpu_torch.data.camera import load_camera
+    from spef_tpu_torch.data.dataset import load_dataset
+    from spef_tpu_torch.engine import SPETorch
+    from spef_tpu_torch.models.wrapper import import_model
+    from spef_tpu_torch.quant.bitwidth import experiment_model_names
+    from spef_tpu_torch.train.trainer import evaluation
+    from spef_tpu_torch.utils.experiment import save_score_error, set_seed
+
+    set_seed(args.seed)
+    cfg = load_config(os.path.join(args.experiment, "config.yaml"))
+    data_path = args.data or cfg.DATA.PATH
+    spe_utils = SPEUtils.create(
+        load_camera(data_path),
+        ori_mode=cfg.MODEL.HEAD.ORI,
+        n_ori_bins_per_dim=cfg.MODEL.HEAD.N_ORI_BINS_PER_DIM,
+        ori_smooth_factor=cfg.DATA.ORI_SMOOTH_FACTOR,
+        ori_delete_unused_bins=cfg.MODEL.HEAD.ORI_DELETE_UNUSED_BINS,
+        pos_mode=cfg.MODEL.HEAD.POS,
+        n_pos_bins_per_dim=cfg.MODEL.HEAD.N_POS_BINS_PER_DIM,
+        pos_smooth_factor=cfg.DATA.POS_SMOOTH_FACTOR,
+        device=args.device,
+    )
+    data, split = load_dataset(data_path, args.batch_size, tuple(cfg.DATA.IMG_SIZE))
+
+    # A QAT checkpoint (model/bit_width.json) belongs to the quantized
+    # models: the configured names map to their _q forms.
+    backbone_name, head_name, bit_width = experiment_model_names(
+        args.experiment, cfg.MODEL.BACKBONE.NAME, cfg.MODEL.HEAD.NAME)
+    model = import_model(
+        backbone_name=backbone_name,
+        head_name=head_name,
+        params_path=os.path.join(args.experiment, "model", "parameters.msgpack"),
+        bit_width=bit_width,
+        residual=cfg.MODEL.BACKBONE.RESIDUAL,
+        quantization=cfg.MODEL.QUANTIZATION or bit_width is not None,
+        ori_mode=cfg.MODEL.HEAD.ORI,
+        n_ori_bins=spe_utils.orientation.n_bins,
+        pos_mode=cfg.MODEL.HEAD.POS,
+        n_pos_bins=spe_utils.position.n_bins,
+        device=args.device,
+    )
+    engine = SPETorch(model, spe_utils, device=args.device)
+    rec_score, rec_error = evaluation(engine, data, spe_utils, split["eval"])
+
+    for phase in split["eval"]:
+        print(
+            f"[{phase}] esa={rec_score[phase]['esa'][0]:.4f} "
+            f"ori_err={rec_error[phase]['ori'][0]:.2f}deg (+/-{rec_error[phase]['ori_std'][0]:.2f}) "
+            f"pos_err={rec_error[phase]['pos'][0]:.3f}m (+/-{rec_error[phase]['pos_std'][0]:.3f})"
+        )
+    save_score_error(args.experiment, rec_score, rec_error, name="eval_score_error")
+    return rec_score, rec_error
+
+
+if __name__ == "__main__":
+    main()

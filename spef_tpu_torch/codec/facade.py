@@ -1,4 +1,5 @@
-"""SPEUtils facade: final activations + decoding (PyTorch).
+"""SPEUtils facade: final activations, decoding, target encoding and scoring
+(PyTorch).
 
 Counterpart of ``spef_tpu.codec.facade`` for the ``regression`` and
 ``classification`` modes.  The keypoints mode (EPnP decode) is in ROADMAP
@@ -17,6 +18,7 @@ from spef_tpu_torch.codec.softclass import (
     PositionSoftClassification,
 )
 from spef_tpu_torch.data.camera import Camera
+from spef_tpu_torch.pose import score as score_lib
 
 MODES = ("regression", "classification", "keypoints")
 
@@ -82,3 +84,24 @@ class SPEUtils:
         if self.pos_mode == "classification":
             pose["pos"] = self.position.decode(pose["pos_soft"])
         return pose
+
+    def encode_targets(self, ori: torch.Tensor, pos: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Training targets of a batch: the pose, and its soft-class PDFs in
+        the classification modes.  The keypoint and box targets come with
+        the keypoints family (ROADMAP §A, item 8)."""
+        target: Dict[str, torch.Tensor] = {"ori": ori, "pos": pos}
+        if self.ori_mode == "classification":
+            target["ori_soft"] = self.orientation.encode(ori)
+        if self.pos_mode == "classification":
+            target["pos_soft"] = self.position.encode(pos)
+        return target
+
+    @staticmethod
+    def get_score(true_pose: dict, pred_pose: dict) -> Dict[str, float]:
+        return score_lib.get_score(true_pose, pred_pose)
+
+    @staticmethod
+    def score_batch(true_pose: dict, pred_pose: dict) -> Dict[str, torch.Tensor]:
+        """Batch-mean metrics, no host sync and no raise (``invalid`` counts)."""
+        return score_lib.score_batch(
+            true_pose["ori"], true_pose["pos"], pred_pose["ori"], pred_pose["pos"])

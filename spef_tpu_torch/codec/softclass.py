@@ -1,20 +1,24 @@
 """URSONet-style soft-classification codecs — batched PyTorch.
 
-Counterpart of ``spef_tpu.codec.softclass`` (``create`` and ``decode``):
+Counterpart of ``spef_tpu.codec.softclass``:
 
+  * Encode: the Gaussian kernel over the bin histogram for the whole batch,
+    one ``(B, 4) x (4, n_bins)`` product (ori) or ``(B, n_bins, 3)``
+    squared distances (pos).
   * Ori decode: ``A = H^T diag(p) H`` for the whole batch, then the
     eigenvector of the largest eigenvalue from a batched ``eigh`` (``A`` is
     symmetric PSD).  ``eigh`` does not fix the sign of ``q``: compare
     quaternions up to sign.
   * Pos decode: probability-weighted mean of bin centers — one matmul.
 
-Both run in float32 with TF32 off: TF32 keeps about three decimal digits,
+All of them run in float32 with TF32 off: TF32 keeps about three decimal digits,
 which is the bf16-Gram hazard the JAX package met in EPnP.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple, Union
 
 import numpy as np
@@ -80,6 +84,18 @@ class OrientationSoftClassification:
     def n_bins(self) -> int:
         return self.histogram.shape[0]
 
+    def encode(self, ori: torch.Tensor) -> torch.Tensor:
+        """True orientations ``(..., 4)`` -> soft-class targets ``(..., n_bins)``:
+        eq. 3 of Proenca's URSONet, a Gaussian kernel of the angle to each bin."""
+        _exact_f32_matmuls()
+        variance = (self.smooth_factor / self.n_bins_per_dim) ** 2 / 12.0
+        dots = torch.abs(ori.float() @ self.histogram.T)
+        ang = 2.0 * torch.arccos(torch.clamp(dots, max=1.0)) / math.pi
+        kernel = torch.exp(-(ang**2) / (2.0 * variance))
+        if not self.delete_unused_bins:
+            kernel = torch.where(self.redundant_flags, 0.0, kernel)
+        return kernel / torch.sum(kernel, dim=-1, keepdim=True)
+
     def decode(self, probs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(n_bins,)`` or ``(B, n_bins)`` PDFs -> ``(q, A^-1)``.
 
@@ -130,6 +146,14 @@ class PositionSoftClassification:
     @property
     def n_bins(self) -> int:
         return self.histogram.shape[0]
+
+    def encode(self, pos: torch.Tensor) -> torch.Tensor:
+        """True positions ``(..., 3)`` -> soft-class targets ``(..., n_bins)``:
+        a Gaussian kernel over the squared distances to the bin centers."""
+        variance = (self.smooth_factor / self.n_bins_per_dim) ** 2 / 12.0
+        diff = pos.float()[..., None, :] - self.histogram
+        kernel = torch.exp(-torch.sum(diff**2, dim=-1) / (2.0 * variance))
+        return kernel / torch.sum(kernel, dim=-1, keepdim=True)
 
     def decode(self, probs: torch.Tensor) -> torch.Tensor:
         """Probability-weighted mean of bin centers, ``(..., n_bins) -> (..., 3)``."""

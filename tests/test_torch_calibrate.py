@@ -120,8 +120,8 @@ def test_calibrate_graph_on_flagship_frames_within_one_bin():
     graph = load_int8_graph(ASSET)
     rng = np.random.RandomState(0)
     oris, poss = synthetic.generate_positions(rng, 4)
-    frames = np.stack([synthetic.render_frame(q, p, img_size=(120, 192), rng=rng)
-                       for q, p in zip(oris, poss)])
+    frames = np.stack([synthetic.render_frame(q, p, img_size=(120, 192), rng=rng)[..., ::-1]
+                       for q, p in zip(oris, poss)])  # the dataset's channel order
     batches = [frames[:2], frames[2:]]
     got, got_amax = calibrate.calibrate_graph(graph, batches, device="cpu")
     want, want_amax = jcalibrate.calibrate_graph(graph, batches)

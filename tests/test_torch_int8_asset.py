@@ -10,7 +10,8 @@ to an int8 graph with the boundary recipe by the JAX package:
      (``quant/warmstart.py::copy_params``);
   2. ``convert_qat_params`` gives the integer graph;
   3. every activation grid is calibrated (``quant/calibrate.py``, 99.99th
-     percentile) on 32 synthetic 240x384 frames (``data/synthetic.py``);
+     percentile) on 32 synthetic 240x384 frames (``data/synthetic.py``,
+     seed 0) in the dataset's channel order, RGB;
   4. the leaves become numpy arrays, pickled.
 
 Regenerate it (about a minute on a CPU) from the repo root with
@@ -53,11 +54,14 @@ def _quant_model(img_size):
 
 
 def _synthetic_frames(n, seed):
+    """``n`` synthetic frames in the dataset's channel order: ``render_frame``
+    gives OpenCV's BGR, the dataset writes it with ``cv2.imwrite`` and reads
+    it back as RGB, which is what the model was trained on."""
     from spef_tpu.data.synthetic import generate_positions, render_frame
 
     rng = np.random.RandomState(seed)
     oris, poss = generate_positions(rng, n)
-    return np.stack([render_frame(q, p, img_size=IMG_SIZE, rng=rng)
+    return np.stack([render_frame(q, p, img_size=IMG_SIZE, rng=rng)[..., ::-1]
                      for q, p in zip(oris, poss)])
 
 

@@ -1,5 +1,8 @@
 """The port stands alone: importing every ``spef_tpu_torch`` module pulls in
-neither JAX, flax nor any module of the JAX package."""
+neither JAX, flax nor any module of the JAX package, and none of the host
+libraries the card's machine does not promise (PIL, OpenCV, pandas, PyYAML,
+msgpack): the port decodes PNGs, draws frames, reads configs and writes
+checkpoints and scores itself."""
 
 import os
 import subprocess
@@ -18,6 +21,9 @@ bad = sorted(m for m in sys.modules
 print(len(names))
 assert not bad, bad
 assert "triton" not in sys.modules
+host = sorted(m for m in sys.modules
+              if m.split(".")[0] in ("PIL", "cv2", "pandas", "yaml", "msgpack"))
+assert not host, host
 """
 
 
@@ -29,8 +35,8 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 
 def test_package_sources_name_no_jax_import():
-    """No source line of the port imports JAX, flax or the JAX package, even
-    behind a branch the probe above does not take."""
+    """No source line of the port imports JAX, flax, the JAX package, PIL,
+    OpenCV or pandas, even behind a branch the probe above does not take."""
     offenders = []
     for root, _, files in os.walk(os.path.join(REPO, "spef_tpu_torch")):
         for f in files:
@@ -42,6 +48,7 @@ def test_package_sources_name_no_jax_import():
                     s = line.strip()
                     if s.startswith(("import ", "from ")):
                         mod = s.split()[1].split(".")[0]
-                        if mod in ("jax", "jaxlib", "flax", "spef_tpu"):
+                        if mod in ("jax", "jaxlib", "flax", "spef_tpu", "PIL", "cv2",
+                                   "pandas"):
                             offenders.append(f"{path}:{i}: {s}")
     assert not offenders, offenders
