@@ -88,7 +88,32 @@ each printed on its own lines; any failure exits nonzero:
      (CUDA events) and its bound, printed as one ``{"kernels": [...]}`` JSON
      line of four entries; K1's one call on the fused path (the head conv)
      is timed apart, and K1's and K2's calls on the carry path;
- 10. the last line: ``{"ok": true, "device": {...}}``.
+ 10. training, the flagship at full width (``mobilenet_v2`` + URSONet,
+     1232 + 1000 bins, batch 64, 240x384, Adam): a D-SPEED still set of 512
+     + 128 + 128 frames written into ``build/``; a parity gate (one SGD
+     step from the flagship checkpoint on the first 64 train frames, one
+     dropout mask for both sides, bf16 on the card against float32 on the
+     CPU: loss within 1%, the cosine of the two parameter updates at least
+     0.99, BN running statistics within 1e-2); a learning gate (40 Adam
+     steps from a fresh init on one batch: the loss above the targets'
+     entropy at most halves); ``python -m spef_tpu_torch.apps.train`` on the
+     flagship's config for 2 epochs (streaming loader, checkpoints, the
+     device augmentation), resumed for a third from device-resident data
+     (the split decoded in that epoch), a fourth from RAM and a fifth from
+     the card, both from the sidecar the third wrote; its per-epoch step ms
+     p50 (CUDA events), frames/s, step share of the epoch, augmentation ms
+     and peak memory printed, its final ESAs, and the trained experiment
+     served for one batch by ``apps.serve``;
+ 11. the deployment build on that set: ``python -m
+     spef_tpu_torch.apps.build_int8 --recipe boundary`` from the flagship's
+     float checkpoint, calibrated on the train batches, one QAT epoch (8
+     steps of ``mobilenet_v2_q``) on device-resident data; the ladder's
+     ESAs (``qat``, ``int8``, ``weight_only``) and the parity report; int8
+     within 0.05 of float's ESA on the same frames; the written
+     ``int8_graph.pkl`` served by ``apps.serve --int8-executor carry`` and
+     ``layer`` on K1/K2 (launches counted), within 0.3 logit of its plain
+     backend on 64 frames; the set removed;
+ 12. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, where ``torch.cuda.is_available()`` is
 false or the package is missing.
@@ -1184,6 +1209,405 @@ def phase_carry(torch, np, dev, frames, exp_dir, graph):
 
 
 # ---------------------------------------------------------------------------
+# Training and the deployment build
+# ---------------------------------------------------------------------------
+
+# A D-SPEED still set for the training phases (240x384, seed 1001).
+TRAIN_SET = {"n_train": 512, "n_valid": 128, "n_test": 128}
+TRAIN_BATCH = 64  # the flagship's DATA.BATCH_SIZE
+PARITY_LOSS_TOL = 0.01  # bf16 on the card vs float32 on the CPU, one SGD step
+PARITY_COSINE = 0.99  # of the two parameter updates, flattened
+PARITY_BN_TOL = 0.01  # running statistics, ||card - cpu|| / ||cpu|| a tensor
+LEARN_STEPS = 40
+INT8_ESA_TOL = 0.05  # the built int8 graph's ESA against float's on the same frames
+
+
+class _Tee:
+    """Writes to stdout and keeps a copy (a phase reads what the CLI printed)."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, text):
+        self.parts.append(text)
+        return sys.__stdout__.write(text)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def _flagship_config(still, path):
+    """The flagship's config.yaml with DATA.PATH set to ``still``."""
+    with open(os.path.join(FLAGSHIP, "config.yaml")) as f:
+        cfg = f.read()
+    assert "PATH: /tmp/dspeed_syn/still" in cfg
+    with open(path, "w") as f:
+        f.write(cfg.replace("PATH: /tmp/dspeed_syn/still", f"PATH: {still}"))
+    return path
+
+
+def _first_train_batch(torch, np, still, dev):
+    """The first 64 train frames (no shuffle, no augmentation): images /
+    255 (IEEE division) and the pose, on ``dev``."""
+    from spef_tpu_torch.data.dataset import load_dataset
+
+    data, _ = load_dataset(still, TRAIN_BATCH, (240, 384))
+    batch = next(iter(data["train"]))
+    assert batch["mask"].all()
+    images = torch.from_numpy(batch["images"]).to(dev).float() / torch.tensor(255.0, device=dev)
+    return images, torch.from_numpy(batch["ori"]).to(dev), torch.from_numpy(batch["pos"]).to(dev)
+
+
+def _flagship_utils(still, dev):
+    from spef_tpu_torch.codec.facade import SPEUtils
+    from spef_tpu_torch.data.camera import load_camera
+
+    return SPEUtils.create(load_camera(still), ori_mode="classification",
+                           pos_mode="classification", device=dev)
+
+
+def _parity_gate(torch, np, dev, still):
+    """One SGD step (lr 1e-3, momentum 0.9) from the flagship checkpoint on
+    the first 64 train frames, one dropout mask for both sides: bf16 on the
+    card against float32 on the CPU.  Gates: the loss within 1%, the
+    cosine of the two parameter updates at least 0.99, the BN running
+    statistics within 1e-2."""
+    from spef_tpu_torch.models.wrapper import import_model
+    from spef_tpu_torch.train.loss import SPELoss
+    from spef_tpu_torch.train.optimizer import import_optimizer
+    from spef_tpu_torch.train.step import create_train_state, train_update
+
+    class FixedDropout(torch.nn.Module):
+        """The head's dropout (rate 0.2) with one mask for both sides."""
+
+        def __init__(self, keep):
+            super().__init__()
+            self.keep = keep
+
+        def forward(self, x):
+            return torch.where(self.keep, x / (1.0 - 0.2), torch.zeros_like(x))
+
+    keep = torch.rand((TRAIN_BATCH, 1280), generator=torch.Generator().manual_seed(0)) < 0.8
+    runs = {}
+    for where, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        t0 = time.perf_counter()
+        utils = _flagship_utils(still, where)
+        model = import_model(params_path=os.path.join(FLAGSHIP, "model", "parameters.msgpack"),
+                             ori_mode="classification", n_ori_bins=utils.orientation.n_bins,
+                             pos_mode="classification", n_pos_bins=utils.position.n_bins,
+                             device=where, compute_dtype=dtype)
+        model.head.ori_dropout = FixedDropout(keep.to(where))
+        before = {n: p.detach().float().cpu().clone() for n, p in model.named_parameters()}
+        optimizer, _ = import_optimizer(model.parameters(), 1e-3, "SGD", 0.9)
+        images, ori, pos = _first_train_batch(torch, np, still, where)
+        loss, _ = train_update(create_train_state(model, optimizer), images,
+                               utils.encode_targets(ori, pos), utils,
+                               SPELoss("classification", "classification"),
+                               torch.Generator(device=where).manual_seed(0))
+        runs[where.type] = {
+            "loss": float(loss),
+            "update": {n: p.detach().float().cpu() - before[n] for n, p in
+                       model.named_parameters()},
+            "stats": {n: b.detach().float().cpu() for n, b in model.named_buffers()
+                      if n.endswith(("running_mean", "running_var"))},
+        }
+        log(f"[train:parity] one SGD step of the flagship at batch {TRAIN_BATCH} on {where.type} "
+            f"({str(dtype).replace('torch.', '')}): loss {runs[where.type]['loss']:.6f}, "
+            f"{time.perf_counter() - t0:.2f} s with the model's load")
+    card, cpu = runs[dev.type], runs["cpu"]
+    rel_loss = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    a = torch.cat([card["update"][n].flatten() for n in cpu["update"]]).double()
+    b = torch.cat([cpu["update"][n].flatten() for n in cpu["update"]]).double()
+    cosine = float(a @ b / (a.norm() * b.norm()))
+    per_tensor = {n: float(torch.nn.functional.cosine_similarity(
+        card["update"][n].flatten().double(), u.flatten().double(), dim=0))
+        for n, u in cpu["update"].items() if float(u.norm()) > 1e-12}
+    worst = min(per_tensor, key=per_tensor.get)
+    # Tensors whose update is at least 1e-3 of the largest one's: BN biases
+    # ahead of another BN get gradients that are zero up to rounding.
+    norms = {n: float(u.norm()) for n, u in cpu["update"].items()}
+    moving = {n: c for n, c in per_tensor.items() if norms[n] >= 1e-3 * max(norms.values())}
+    worst_moving = min(moving, key=moving.get)
+    bn = {n: float((card["stats"][n] - s).norm() / s.norm()) for n, s in cpu["stats"].items()}
+    worst_bn = max(bn, key=bn.get)
+    log(f"[train:parity] loss {card['loss']:.6f} (card, bf16) vs {cpu['loss']:.6f} (CPU, "
+        f"float32): {rel_loss:.3e} relative (at most {PARITY_LOSS_TOL}); update cosine "
+        f"{cosine:.6f} over {a.numel()} parameters (at least {PARITY_COSINE}), per-tensor "
+        f"minimum {per_tensor[worst]:.4f} ({worst}, of {len(per_tensor)}), "
+        f"{moving[worst_moving]:.4f} over the {len(moving)} tensors whose update is at least "
+        f"1e-3 of the largest ({worst_moving}); BN running "
+        f"statistics worst {bn[worst_bn]:.3e} relative ({worst_bn}, at most {PARITY_BN_TOL})")
+    assert rel_loss <= PARITY_LOSS_TOL, rel_loss
+    assert cosine >= PARITY_COSINE, cosine
+    assert bn[worst_bn] <= PARITY_BN_TOL, (worst_bn, bn[worst_bn])
+
+
+def _learning_gate(torch, np, dev, still):
+    """40 Adam steps (lr 1e-3) from a fresh init (seed 1001) on one fixed
+    batch of 64: the loss above the targets' entropy H (the KL part) at
+    most halves.  Returns the step ms p50 (CUDA events)."""
+    from spef_tpu_torch.models.wrapper import import_model
+    from spef_tpu_torch.train.loss import SPELoss
+    from spef_tpu_torch.train.optimizer import import_optimizer
+    from spef_tpu_torch.train.step import create_train_state, train_update
+
+    utils = _flagship_utils(still, dev)
+    model = import_model(ori_mode="classification", n_ori_bins=utils.orientation.n_bins,
+                         pos_mode="classification", n_pos_bins=utils.position.n_bins,
+                         seed=1001, device=dev)
+    optimizer, _ = import_optimizer(model.parameters(), 1e-3, "Adam")
+    state = create_train_state(model, optimizer)
+    images, ori, pos = _first_train_batch(torch, np, still, dev)
+    targets = utils.encode_targets(ori, pos)
+    entropy = sum(float(torch.special.entr(targets[k]).sum(-1).mean())
+                  for k in ("ori_soft", "pos_soft"))
+    spe_loss = SPELoss("classification", "classification")
+    gen = torch.Generator(device=dev).manual_seed(1001)
+    losses, times = [], []
+    for _ in range(LEARN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, _ = train_update(state, images, targets, utils, spe_loss, gen)
+        end.record()
+        losses.append(loss)
+        times.append((start, end))
+    torch.cuda.synchronize()
+    losses = torch.stack(losses).cpu().numpy()
+    step_ms = [s.elapsed_time(e) for s, e in times]
+    kl_1, kl_n = losses[0] - entropy, losses[-1] - entropy
+    log(f"[train:learn] {LEARN_STEPS} Adam steps from a fresh init on one batch of "
+        f"{TRAIN_BATCH}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, the targets' entropy H "
+        f"{entropy:.4f}, KL {kl_1:.4f} -> {kl_n:.4f} ({kl_n / kl_1:.3f} of it, at most 0.5); "
+        f"step p50 {float(np.percentile(step_ms[1:], 50)):.3f} ms (CUDA events, batch "
+        f"{TRAIN_BATCH}, 240x384, data on the card)")
+    assert np.isfinite(losses).all(), losses
+    assert kl_n <= 0.5 * kl_1, (kl_1, kl_n)
+    _profile_steps(torch, lambda: train_update(state, images, targets, utils, spe_loss, gen))
+    return float(np.percentile(step_ms[1:], 50))
+
+
+# Kernel-name fragments -> the part of a train step they belong to (first match).
+_STEP_PARTS = (("convolution (cuDNN)", ("conv", "cudnn", "xmma", "implicit_gemm", "dgrad",
+                                        "wgrad", "fprop")),
+               ("batch norm", ("batch_norm", "batchnorm", "welford", "bn_")),
+               ("optimizer (Adam)", ("multi_tensor", "adam", "foreach")),
+               ("matmul (cuBLAS)", ("gemm", "gemv", "cublas")),
+               ("reductions", ("reduce",)),
+               ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def _profile_steps(torch, step, n=5):
+    """``n`` train steps under ``torch.profiler``: device time a step by part
+    (kernel names, ``_STEP_PARTS``) and the share of the window the card sat
+    idle (no kernel running)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0]
+    if not kernels:
+        log("[train:profile] torch.profiler recorded no device time on this machine (not "
+            "measured); the step times above are CUDA events")
+        return
+    parts = {}
+    for e in kernels:
+        name = e.name.lower()
+        part = next((p for p, keys in _STEP_PARTS if any(k in name for k in keys)), "other")
+        parts[part] = parts.get(part, 0.0) + e.time_range.elapsed_us()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, None
+    for a, b in spans:  # the union of the kernels' intervals
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    window = spans[-1][1] - spans[0][0]
+    total = sum(parts.values())
+    log(f"[train:profile] {n} steps under torch.profiler: {len(kernels) / n:.0f} kernels and "
+        f"{total / n / 1e3:.3f} ms of device time a step (host clock {wall_us / n / 1e3:.3f} ms "
+        f"a step with the profiler on); the card idle {100 * (1 - busy / window):.1f}% of the "
+        f"window from the first kernel to the last; by part: " + ", ".join(
+            f"{p} {t / n / 1e3:.3f} ms ({100 * t / total:.1f}%)"
+            for p, t in sorted(parts.items(), key=lambda kv: -kv[1])))
+
+
+def _log_epochs(label, epochs):
+    for s in epochs:
+        mem = s["peak_memory_bytes"] / 2**30
+        log(f"[train:cli] {label}, epoch {s['epoch']}: train step p50 {s['step_ms_p50']:.3f} ms "
+            f"(CUDA events), {s['frames_per_s']:.1f} frames/s, steps "
+            f"{100 * s['step_share']:.1f}% of the epoch's {s['wall_s']:.2f} s, augmentation "
+            f"{s['augment_ms']:.3f} ms a batch, max_memory_allocated {mem:.3f} GiB")
+
+
+def _train_cli(torch, np, dev, still, root):
+    """``python -m spef_tpu_torch.apps.train`` on the flagship's config:
+    two epochs from the streaming loader with checkpoints and the device
+    augmentation; a third resumed from them on device-resident data (the
+    split decoded in that epoch); a fourth on RAM-cached and a fifth on
+    device-resident data, both read from the sidecar the third wrote; the
+    trained experiment served for one batch through ``apps.serve``."""
+    import contextlib
+
+    from spef_tpu_torch.apps import train as train_app
+    from spef_tpu_torch.data.dataset import load_dataset
+
+    cfg = _flagship_config(still, os.path.join(root, "exp_dspeed_synth.yaml"))
+    common = ["--config", cfg, "--out", os.path.join(root, "train_out"), "--checkpoint",
+              "--device-augment"]
+    runs = {}
+    # The first cached run decodes the split inside its epoch and writes the
+    # sidecar; the later ones memmap it.
+    for label, flags, resumed in (
+            ("streaming loader", ["--epochs", "2"], None),
+            ("device-resident data, decoded in the epoch", ["--epochs", "3", "--device-data"],
+             2),
+            ("RAM-cached data, from the sidecar", ["--epochs", "4", "--cache-dataset"], 3),
+            ("device-resident data, from the sidecar", ["--epochs", "5", "--device-data"], 4)):
+        tee = _Tee()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            result = train_app.main(common + flags)["exp_dspeed_synth"]
+        assert result is not None, f"apps.train {' '.join(flags)} failed (traceback above)"
+        if resumed:
+            assert f"Resumed from epoch {resumed}" in tee.text(), flags
+            assert result["start_epoch"] == resumed + 1, result["start_epoch"]
+        log(f"[train:cli] apps.train {' '.join(flags)} --checkpoint --device-augment ({label}): "
+            f"{time.perf_counter() - t0:.2f} s"
+            + (f"; it printed 'Resumed from epoch {resumed}'" if resumed else ""))
+        _log_epochs(label, result["epochs"])
+        runs[label] = result
+    last = runs["device-resident data, from the sidecar"]
+    for phase in ("valid", "test"):
+        esa = last["score"][phase]["esa"][0]
+        log(f"[train:cli] final evaluation after 5 epochs: {phase} ESA {esa:.4f}, ori "
+            f"{last['error'][phase]['ori'][0]:.2f} deg, pos "
+            f"{last['error'][phase]['pos'][0]:.3f} m")
+        assert np.isfinite(esa)
+
+    server, _ = _serve(torch, ["--experiment", last["folder"], "--batch", str(TRAIN_BATCH)])
+    data, _ = load_dataset(still, TRAIN_BATCH, (240, 384))
+    frames = next(iter(data["test"]))["images"]
+    pose, ms = server.predict(frames)
+    _check_pose(np, pose, TRAIN_BATCH)
+    log(f"[train:cli] the trained experiment served by apps.serve: one batch of "
+        f"{TRAIN_BATCH} test frames, {ms:.2f} ms")
+    return cfg
+
+
+def phase_training(torch, np, dev, root):
+    """Phase 10: the flagship trained on the card at full width.  Returns
+    the dataset and the config the deployment build uses."""
+    from spef_tpu_torch.data.synthetic import create_synthetic_dataset
+
+    workers = max(1, min(8, (os.cpu_count() or 1) - 1))
+    t0 = time.perf_counter()
+    still = create_synthetic_dataset(root, img_size=(240, 384), seed=1001, workers=workers,
+                                     **TRAIN_SET)
+    log(f"[train] D-SPEED still set written ({TRAIN_SET['n_train']} + {TRAIN_SET['n_valid']} + "
+        f"{TRAIN_SET['n_test']} frames at 240x384, seed 1001, {workers} render processes): "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    _parity_gate(torch, np, dev, still)
+    t1 = time.perf_counter()
+    _learning_gate(torch, np, dev, still)
+    t2 = time.perf_counter()
+    cfg = _train_cli(torch, np, dev, still, root)
+    log(f"[train] seconds: parity gate {t1 - t0:.2f}, learning gate {t2 - t1:.2f}, the CLI "
+        f"(four runs, five epochs, evaluations, serve) {time.perf_counter() - t2:.2f}")
+    return still, cfg
+
+
+def phase_deploy_build(torch, np, dev, still, cfg, root):
+    """Phase 11: ``python -m spef_tpu_torch.apps.build_int8`` on the
+    phase-10 set: the boundary recipe warm-started from the flagship's float
+    checkpoint, calibrated on the train batches, one QAT epoch from device-
+    resident data; the ladder (qat, int8, weight_only) and the parity
+    report; int8 within 0.05 of float's ESA on the same frames; the written
+    ``int8_graph.pkl`` served through ``--int8-executor carry`` and ``layer``
+    on K1/K2, within 0.3 logit of its plain backend on 64 frames.  Returns
+    the launches of those two serves."""
+    from spef_tpu_torch.apps import build_int8 as build_app
+    from spef_tpu_torch.data.dataset import load_dataset
+    from spef_tpu_torch.engine import SPETorch
+    from spef_tpu_torch.models.wrapper import import_model
+    from spef_tpu_torch.quant.int8_carry import build_int8_carry_forward
+    from spef_tpu_torch.quant.int8_cuda import build_cuda_forward
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph
+    from spef_tpu_torch.train.trainer import evaluation
+
+    t0 = time.perf_counter()
+    result = build_app.main(["--config", cfg, "--out", os.path.join(root, "build_out"),
+                             "--recipe", "boundary", "--fp32-checkpoint",
+                             os.path.join(FLAGSHIP, "model", "parameters.msgpack"),
+                             "--calibrate", "percentile", "--qat-epochs", "1", "--device-data"])
+    t1 = time.perf_counter()
+    folder, ladder = result["folder"], result["ladder"]
+    utils = _flagship_utils(still, dev)
+    data, split = load_dataset(still, TRAIN_BATCH, (240, 384))
+    model = import_model(params_path=os.path.join(FLAGSHIP, "model", "parameters.msgpack"),
+                         ori_mode="classification", n_ori_bins=utils.orientation.n_bins,
+                         pos_mode="classification", n_pos_bins=utils.position.n_bins,
+                         device=dev)
+    float_score, _ = evaluation(SPETorch(model, utils, device=dev), data, utils, split["eval"])
+    log(f"[build] apps.build_int8 --recipe boundary --fp32-checkpoint <flagship> --calibrate "
+        f"percentile --qat-epochs 1 --device-data: {t1 - t0:.2f} s "
+        f"({TRAIN_SET['n_train'] // TRAIN_BATCH} QAT steps of mobilenet_v2_q)")
+    failed = []
+    for phase in split["eval"]:
+        f_esa = float_score[phase]["esa"][0]
+        got = {stage: ladder[stage][phase]["esa"][0] for stage in ("qat", "int8", "weight_only")}
+        log(f"[build] {phase} ESA: float {f_esa:.4f}, " + ", ".join(
+            f"{k} {v:.4f}" for k, v in got.items()) + f" (int8 within {INT8_ESA_TOL} of float)")
+        if not all(np.isfinite(v) for v in got.values()):
+            failed.append(f"{phase}: a ladder ESA is not finite: {got}")
+        if not abs(got["int8"] - f_esa) <= INT8_ESA_TOL:
+            failed.append(f"{phase}: int8 ESA {got['int8']} is {abs(got['int8'] - f_esa):.4f} "
+                          f"from float's {f_esa} (at most {INT8_ESA_TOL})")
+    log(f"[build] parity report: {json.dumps(result['parity'])}")
+    for part in ("ori_raw", "pos_raw"):
+        if not all(np.isfinite(v) for v in result["parity"][part].values()):
+            failed.append(f"parity {part} not finite")
+
+    graph_pkl = os.path.join(folder, "int8_graph.pkl")
+    graph = load_int8_graph(graph_pkl)
+    frames = next(iter(data["test"]))["images"]
+    x = torch.from_numpy(frames).to(dev)
+    launches = {}
+    for executor, build, per_forward in (("carry", build_int8_carry_forward, CARRY_LAUNCHES),
+                                         ("layer", build_cuda_forward, LAYER_LAUNCHES)):
+        server, _ = _serve(torch, ["--experiment", folder, "--int8-graph", graph_pkl,
+                                   "--int8-executor", executor, "--batch", str(TRAIN_BATCH)])
+        _reset_counters()
+        pose, ms = server.predict(frames)
+        launches[executor] = _read_counters(f"build:{executor}", 1, per_forward)
+        _check_pose(np, pose, TRAIN_BATCH)
+        got = build(graph, backend="cuda", device=dev)(x)
+        want = build(graph, backend="plain", device=dev)(x)
+        torch.cuda.synchronize()
+        d = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        log(f"[build] the built graph served by apps.serve --int8-executor {executor}: "
+            f"{TRAIN_BATCH} test frames, {ms:.2f} ms; kernels vs plain backend max |d logit| "
+            f"{d:.4g} (at most 0.3)")
+        if not d < 0.3:
+            failed.append(f"{executor}: kernels {d} in logits from the plain backend")
+    if failed:
+        raise AssertionError("deployment build gates failed: " + "; ".join(failed))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Accuracy on the flagship's test split
 # ---------------------------------------------------------------------------
 
@@ -1435,6 +1859,12 @@ def main() -> int:
     # counts (their times are of those calls); the others are beside them.
     launches = {name: layer_launches[name] or fused_launches[name] for name in KERNELS}
     rows = phase_kernels(torch, dev, frames, launches, graph)
+    train_root = os.path.join(REPO, "build", f"chip_smoke_train_{os.getpid()}")
+    try:
+        still, cfg = phase_training(torch, np, dev, train_root)
+        build_launches = phase_deploy_build(torch, np, dev, still, cfg, train_root)
+    finally:
+        shutil.rmtree(train_root, ignore_errors=True)
     for row in rows:
         if row["name"] == "int8_matmul_requant":
             row["launches_fused_path"] = fused_launches["int8_matmul_requant"]
@@ -1445,6 +1875,11 @@ def main() -> int:
         row["launches_accuracy_path"] = {
             name: counts[row["name"]] for name, counts in accuracy_launches.items()
             if counts[row["name"]]}
+        if row["name"] in CARRY_LAUNCHES:
+            # the graph apps.build_int8 wrote, one request of 64 frames
+            # through carry and layer (phase_deploy_build)
+            row["launches_build_path"] = {
+                name: counts[row["name"]] for name, counts in build_launches.items()}
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

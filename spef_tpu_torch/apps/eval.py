@@ -10,10 +10,10 @@ Usage:
     python -m spef_tpu_torch.apps.eval --experiment experiments/train_synth/exp_dspeed_synth \\
         [--data /path/to/dspeed/still] [--batch-size 32] [--device cuda]
 
-It runs on the card; ``--device cpu`` runs it on the CPU.  The decoded-split
-cache (``--cache-dataset``) comes with training (ROADMAP §A, item 6); the
-keypoint decodes (``--ransac``, ``--border-gate``, ``--crop-refine``) with
-the keypoints family (item 8).
+It runs on the card; ``--device cpu`` runs it on the CPU.
+``--cache-dataset`` reads the splits through the decoded-split cache.  The
+keypoint decodes (``--ransac``, ``--border-gate``, ``--crop-refine``) come
+with the keypoints family (ROADMAP §A, item 8).
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--batch-size", type=int, default=32)
     parser.add_argument("--seed", type=int, default=1001)
     parser.add_argument("--cache-dataset", action="store_true",
-                        help="not ported yet (ROADMAP §A, item 6)")
+                        help="serve the splits from the decoded-split cache (a memmapped "
+                             "sidecar file beside the images, written on the first run)")
     parser.add_argument("--ransac", action="store_true",
                         help="keypoints mode: not ported yet (ROADMAP §A, item 8)")
     parser.add_argument("--border-gate", type=float, default=None,
@@ -49,9 +50,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[List[str]] = None):
     """Evaluate; returns ``(rec_score, rec_error)`` as ``save_score_error`` writes them."""
     args = parse_args(argv)
-    if args.cache_dataset:
-        raise NotImplementedError("--cache-dataset: the decoded-split cache is not ported yet "
-                                  "(ROADMAP §A, item 6)")
     if args.ransac or args.border_gate is not None or args.crop_refine:
         raise NotImplementedError("--ransac, --border-gate and --crop-refine: the keypoints "
                                   "family is not ported yet (ROADMAP §A, item 8)")
@@ -71,18 +69,9 @@ def main(argv: Optional[List[str]] = None):
     set_seed(args.seed)
     cfg = load_config(os.path.join(args.experiment, "config.yaml"))
     data_path = args.data or cfg.DATA.PATH
-    spe_utils = SPEUtils.create(
-        load_camera(data_path),
-        ori_mode=cfg.MODEL.HEAD.ORI,
-        n_ori_bins_per_dim=cfg.MODEL.HEAD.N_ORI_BINS_PER_DIM,
-        ori_smooth_factor=cfg.DATA.ORI_SMOOTH_FACTOR,
-        ori_delete_unused_bins=cfg.MODEL.HEAD.ORI_DELETE_UNUSED_BINS,
-        pos_mode=cfg.MODEL.HEAD.POS,
-        n_pos_bins_per_dim=cfg.MODEL.HEAD.N_POS_BINS_PER_DIM,
-        pos_smooth_factor=cfg.DATA.POS_SMOOTH_FACTOR,
-        device=args.device,
-    )
-    data, split = load_dataset(data_path, args.batch_size, tuple(cfg.DATA.IMG_SIZE))
+    spe_utils = SPEUtils.from_config(cfg, load_camera(data_path), device=args.device)
+    data, split = load_dataset(data_path, args.batch_size, tuple(cfg.DATA.IMG_SIZE),
+                               cache=args.cache_dataset, device=args.device)
 
     # A QAT checkpoint (model/bit_width.json) belongs to the quantized
     # models: the configured names map to their _q forms.

@@ -69,17 +69,7 @@ def build_server(args: argparse.Namespace):
 
     cfg = load_config(os.path.join(args.experiment, "config.yaml"))
     camera = load_camera(cfg.DATA.PATH) if os.path.exists(cfg.DATA.PATH) else SPEED_CAMERA
-    spe_utils = SPEUtils.create(
-        camera,
-        ori_mode=cfg.MODEL.HEAD.ORI,
-        n_ori_bins_per_dim=cfg.MODEL.HEAD.N_ORI_BINS_PER_DIM,
-        ori_smooth_factor=cfg.DATA.ORI_SMOOTH_FACTOR,
-        ori_delete_unused_bins=cfg.MODEL.HEAD.ORI_DELETE_UNUSED_BINS,
-        pos_mode=cfg.MODEL.HEAD.POS,
-        n_pos_bins_per_dim=cfg.MODEL.HEAD.N_POS_BINS_PER_DIM,
-        pos_smooth_factor=cfg.DATA.POS_SMOOTH_FACTOR,
-        device=args.device,
-    )
+    spe_utils = SPEUtils.from_config(cfg, camera, device=args.device)
     img_size = tuple(cfg.DATA.IMG_SIZE)
 
     if args.int8_graph:

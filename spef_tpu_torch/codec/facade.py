@@ -66,6 +66,22 @@ class SPEUtils:
                 n_pos_bins_per_dim, pos_smooth_factor, device=device),
         )
 
+    @classmethod
+    def from_config(cls, cfg, camera: Camera, device: Union[str, torch.device] = "cuda"
+                    ) -> "SPEUtils":
+        """The facade an experiment config (``MODEL.HEAD``, ``DATA``) describes."""
+        return cls.create(
+            camera,
+            ori_mode=cfg.MODEL.HEAD.ORI,
+            n_ori_bins_per_dim=cfg.MODEL.HEAD.N_ORI_BINS_PER_DIM,
+            ori_smooth_factor=cfg.DATA.ORI_SMOOTH_FACTOR,
+            ori_delete_unused_bins=cfg.MODEL.HEAD.ORI_DELETE_UNUSED_BINS,
+            pos_mode=cfg.MODEL.HEAD.POS,
+            n_pos_bins_per_dim=cfg.MODEL.HEAD.N_POS_BINS_PER_DIM,
+            pos_smooth_factor=cfg.DATA.POS_SMOOTH_FACTOR,
+            device=device,
+        )
+
     def last_activ(self, pose: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         pose = dict(pose)
         if self.ori_mode == "regression":

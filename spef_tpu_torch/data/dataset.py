@@ -9,8 +9,13 @@ padding rows), a shuffle seeded with ``seed + epoch``.
 
 One decoder, no fallback: PNG files go through :mod:`spef_tpu_torch.data.png`
 (RGB, PIL's bilinear resize).  JPEG files (SPEED, SPEED+) need the native
-loader, which is not ported yet; they raise, as do the host-side rotation
-augmentation and the decoded-split cache.
+loader, which is not ported yet; they raise, as does the host-side rotation
+augmentation (train with the device-side one, ``data/augment.py``).
+
+:class:`CachedBatchLoader` decodes a split once and serves later epochs from
+RAM, from a memmapped sidecar file on later runs, or, with
+``device_resident``, from the device itself (``load_dataset(cache=True)`` /
+``cache="device"``).
 """
 
 from __future__ import annotations
@@ -20,13 +25,15 @@ import json
 import os
 import re
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from spef_tpu_torch.data.png import decode_png, resize_bilinear
 
-__all__ = ["PoseRecord", "Manifest", "BatchLoader", "load_dataset", "detect_dataset"]
+__all__ = ["PoseRecord", "Manifest", "BatchLoader", "CachedBatchLoader", "load_dataset",
+           "detect_dataset"]
 
 _ORI_KEYS = ("q", "q_vbs2tango", "q_vbs2tango_true")
 _POS_KEYS = ("t", "r_Vo2To_vbs_true")
@@ -34,8 +41,8 @@ _POS_KEYS = ("t", "r_Vo2To_vbs_true")
 _JPEG_TODO = ("JPEG images need the native host loader, which is not ported yet "
               "(ROADMAP §A, item 7: spef_tpu/native/impreproc.cpp)")
 _AUGMENT_TODO = ("host-side rotation augmentation is not ported yet "
-                 "(ROADMAP §A, item 7: data/augment_host.py)")
-_CACHE_TODO = "the decoded-split cache is not ported yet (ROADMAP §A, item 6: CachedBatchLoader)"
+                 "(ROADMAP §A, item 7: data/augment_host.py); augment on the device "
+                 "(data/augment.py, apps.train --device-augment)")
 
 
 def _image_number(path: str) -> int:
@@ -170,6 +177,124 @@ class BatchLoader:
                 yield batch
 
 
+def _pad_rows(a: np.ndarray, pad: int, zeros: bool = False) -> np.ndarray:
+    """``a`` with ``pad`` rows appended: zeros, or copies of its last row."""
+    extra = np.zeros((pad,) + a.shape[1:], a.dtype) if zeros else np.repeat(a[-1:], pad, 0)
+    return np.concatenate([a, extra])
+
+
+class CachedBatchLoader(BatchLoader):
+    """A BatchLoader that decodes the whole split once and serves every
+    epoch from the decoded uint8 array: the same batches (padded last batch
+    and ``mask``, the shuffle seeded with ``seed + epoch``).
+
+    The decoded split (N * H * W * 3 bytes: 5.5 GB for 20,000 frames at
+    240x384) is written beside the images as a sidecar ``.npy`` named by
+    the split's identity and memmapped by later runs.  With
+    ``device_resident`` it is copied to ``device`` once and each batch is an
+    index gather there: ``images`` is then a uint8 tensor on that device
+    (its padding rows zero); ``ori``, ``pos`` and ``mask`` stay numpy.
+    """
+
+    def __init__(self, *args, device_resident: bool = False,
+                 device: Union[str, torch.device] = "cuda", **kw):
+        super().__init__(*args, **kw)
+        self.device_resident = device_resident
+        self.device = torch.device(device)
+        self._cache: Optional[np.ndarray] = None
+        self._dev_cache: Optional[torch.Tensor] = None
+
+    def _cache_path(self) -> Optional[str]:
+        """``<images dir>/.decoded_<H>x<W>_<N>_<id>.npy``, ``id`` a short
+        hash of the ordered image names, so that two splits sharing one
+        images directory (the SPEED layout) with equal counts never load
+        each other's array."""
+        if not self.manifest.records:
+            return None
+        import hashlib
+
+        img_dir = os.path.dirname(self.manifest.records[0].image_path)
+        h, w = self.img_size
+        ident = hashlib.sha1("\n".join(
+            os.path.basename(r.image_path) for r in self.manifest.records
+        ).encode()).hexdigest()[:10]
+        return os.path.join(img_dir, f".decoded_{h}x{w}_{len(self.manifest)}_{ident}.npy")
+
+    def _materialize(self) -> None:
+        path = self._cache_path()
+        if path and os.path.isfile(path):
+            arr = np.load(path, mmap_mode="r")
+            expect = (len(self.manifest),) + tuple(self.img_size) + (3,)
+            # Images regenerated in place (same names and count) are caught
+            # by decoding the first one again.
+            first = self.manifest.records[0].image_path
+            if (arr.shape == expect and arr.dtype == np.uint8
+                    and np.array_equal(np.asarray(arr[0]), load_image(first, self.img_size))):
+                self._cache = arr
+                return
+        base = BatchLoader(self.manifest, self.batch_size, self.img_size, shuffle=False,
+                           n_workers=self.n_workers)
+        chunks = [b["images"][:int(b["mask"].sum())] for b in base]
+        self._cache = (np.concatenate(chunks) if chunks
+                       else np.zeros((0,) + tuple(self.img_size) + (3,), np.uint8))
+        if path:
+            try:  # a read-only dataset directory keeps the split in RAM only
+                tmp = path + ".tmp"
+                with open(tmp, "wb") as f:
+                    np.save(f, self._cache)
+                os.replace(tmp, path)
+            except OSError:
+                pass
+
+    def _device_images(self, idx: np.ndarray) -> torch.Tensor:
+        """One batch gathered on the device; padding rows zero."""
+        if self._dev_cache is None:
+            # A memmapped sidecar is read-only: read it into memory first.
+            arr = self._cache if self._cache.flags.writeable else np.array(self._cache)
+            self._dev_cache = torch.from_numpy(arr).to(self.device)
+        bs = self.batch_size
+        rows = torch.from_numpy(np.concatenate([idx, np.zeros(bs - len(idx), idx.dtype)]))
+        images = self._dev_cache.index_select(0, rows.to(self.device))
+        if len(idx) < bs:
+            images[len(idx):] = 0
+        return images
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        if self._cache is None:
+            self._materialize()
+        order = np.arange(len(self.manifest))
+        if self.shuffle:
+            np.random.RandomState(self.seed + self._epoch).shuffle(order)
+        self._epoch += 1
+        bs = self.batch_size
+        recs = self.manifest.records
+        oris = np.stack([r.ori for r in recs]).astype(np.float32)
+        poss = np.stack([r.pos for r in recs]).astype(np.float32)
+        crops = (np.stack([r.crop for r in recs]).astype(np.float32)
+                 if recs and recs[0].crop is not None else None)
+        for start in range(0, len(order), bs):
+            idx = order[start:start + bs]
+            n_valid = len(idx)
+            if n_valid < bs and self.drop_remainder:
+                break
+            pad = bs - n_valid
+            if self.device_resident:
+                images = self._device_images(idx)
+            else:
+                images = self._cache[idx]
+                images = _pad_rows(images, pad, zeros=True) if pad else images
+            batch = {
+                "images": images,
+                "ori": _pad_rows(oris[idx], pad) if pad else oris[idx],
+                "pos": _pad_rows(poss[idx], pad) if pad else poss[idx],
+                "mask": np.concatenate([np.ones(n_valid, np.float32),
+                                        np.zeros(pad, np.float32)]),
+            }
+            if crops is not None:
+                batch["crop"] = _pad_rows(crops[idx], pad) if pad else crops[idx]
+            yield batch
+
+
 # ---------------------------------------------------------------------------
 # Per-dataset importers
 # ---------------------------------------------------------------------------
@@ -184,15 +309,18 @@ def _make_loaders(
     n_workers: int,
     shuffle_only_train: bool = True,
     rot_augment=None,
-    cache: bool = False,
+    cache: Union[bool, str] = False,
+    device: Union[str, torch.device] = "cuda",
 ) -> Dict[str, BatchLoader]:
-    if cache:
-        raise NotImplementedError(_CACHE_TODO)
+    """One loader a split whose labels exist: :class:`CachedBatchLoader`
+    with ``cache`` (``"device"``: resident on ``device``), else
+    :class:`BatchLoader`."""
+    cached = dict(device_resident=cache == "device", device=device) if cache else {}
     loaders = {}
     for name, (images_path, labels_path) in splits.items():
         if not os.path.isfile(labels_path):
             continue
-        loaders[name] = BatchLoader(
+        loaders[name] = (CachedBatchLoader if cache else BatchLoader)(
             Manifest.from_json(labels_path, images_path),
             batch_size,
             img_size,
@@ -200,6 +328,7 @@ def _make_loaders(
             seed=seed,
             n_workers=n_workers,
             rot_augment=rot_augment if name == "train" else None,
+            **cached,
         )
     return loaders
 
@@ -216,7 +345,7 @@ def _speed_split_file(path: str, name: str) -> str:
 
 
 def import_speed(path, batch_size, img_size, shuffle=False, seed=1001, rot_augment=None,
-                 cache=False):
+                 cache=False, device="cuda"):
     """SPEED splits: train / valid / real."""
     splits = {
         "train": (os.path.join(path, "images", "train"),
@@ -226,14 +355,14 @@ def import_speed(path, batch_size, img_size, shuffle=False, seed=1001, rot_augme
         "real": (os.path.join(path, "images", "real"), os.path.join(path, "real.json")),
     }
     data = _make_loaders(splits, batch_size, img_size, shuffle, seed, n_workers=16,
-                         rot_augment=rot_augment, cache=cache)
+                         rot_augment=rot_augment, cache=cache, device=device)
     split = {"train": tuple(k for k in ("train", "valid", "real") if k in data),
              "eval": tuple(k for k in ("valid", "real") if k in data)}
     return data, split
 
 
 def import_speed_plus(path, batch_size, img_size, shuffle=False, seed=1001, rot_augment=None,
-                      cache=False):
+                      cache=False, device="cuda"):
     """SPEED+ splits: train / valid / sunlamp / lightbox."""
     sy = os.path.join(path, "synthetic")
     splits = {
@@ -245,7 +374,7 @@ def import_speed_plus(path, batch_size, img_size, shuffle=False, seed=1001, rot_
                      os.path.join(path, "lightbox", "test.json")),
     }
     data = _make_loaders(splits, batch_size, img_size, shuffle, seed, n_workers=16,
-                         rot_augment=rot_augment, cache=cache)
+                         rot_augment=rot_augment, cache=cache, device=device)
     split = {
         "train": tuple(k for k in ("train", "valid", "sunlamp", "lightbox") if k in data),
         "eval": tuple(k for k in ("valid", "sunlamp", "lightbox") if k in data),
@@ -254,14 +383,14 @@ def import_speed_plus(path, batch_size, img_size, shuffle=False, seed=1001, rot_
 
 
 def import_dspeed(path, batch_size, img_size, shuffle=False, seed=1001, rot_augment=None,
-                  cache=False):
+                  cache=False, device="cuda"):
     """D-SPEED still splits: train / valid / test."""
     splits = {
         name: (os.path.join(path, name, "images"), os.path.join(path, name, "pose.json"))
         for name in ("train", "valid", "test")
     }
     data = _make_loaders(splits, batch_size, img_size, shuffle, seed, n_workers=64,
-                         rot_augment=rot_augment, cache=cache)
+                         rot_augment=rot_augment, cache=cache, device=device)
     split = {"train": tuple(k for k in ("train", "valid", "test") if k in data),
              "eval": tuple(k for k in ("valid", "test") if k in data)}
     return data, split
@@ -288,16 +417,23 @@ def load_dataset(
     shuffle: bool = False,
     seed: int = 1001,
     rot_augment=None,
-    cache: bool = False,
+    cache: Union[bool, str] = False,
+    device: Union[str, torch.device] = "cuda",
 ):
-    """Dataset dispatch by path: ``(loaders by split, {"train": ..., "eval": ...})``."""
+    """Dataset dispatch by path: ``(loaders by split, {"train": ..., "eval": ...})``.
+
+    ``cache``: decode each split once and serve its epochs from RAM
+    (:class:`CachedBatchLoader`); ``"device"`` keeps the decoded splits on
+    ``device`` and gathers each batch there.
+    """
     kind = detect_dataset(path)
+    args = (path, batch_size, img_size, shuffle, seed, rot_augment, cache, device)
     if kind == "speed":
-        return import_speed(path, batch_size, img_size, shuffle, seed, rot_augment, cache)
+        return import_speed(*args)
     if kind == "speed_plus":
-        return import_speed_plus(path, batch_size, img_size, shuffle, seed, rot_augment, cache)
+        return import_speed_plus(*args)
     if kind == "dspeed":
-        return import_dspeed(path, batch_size, img_size, shuffle, seed, rot_augment, cache)
+        return import_dspeed(*args)
     return import_dspeed_video(path, batch_size, img_size)
 
 

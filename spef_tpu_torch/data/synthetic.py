@@ -230,12 +230,15 @@ def create_synthetic_dataset(
     img_size: Tuple[int, int] = (1200, 1920),
     seed: int = 1001,
     camera: Camera = DSPEED_CAMERA,
+    workers: int = 1,
 ) -> str:
-    """Write a D-SPEED-still-layout dataset: {split}/images/*.png + pose.json."""
+    """Write a D-SPEED-still-layout dataset: {split}/images/*.png + pose.json.
+    ``workers`` > 1 renders and writes in that many processes (the draws
+    stay in order on the caller's thread: the same files)."""
     rng = np.random.RandomState(seed)
     still = os.path.join(root, "still")
     for split, n in (("train", n_train), ("valid", n_valid), ("test", n_test)):
-        _write_still_split(still, split, n, rng, img_size, camera)
+        _write_still_split(still, split, n, rng, img_size, camera, workers)
     return still
 
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``spef_tpu.models.heads.URSONetHead``: global average pool
 over the NHWC feature map, then two fully connected branches (orientation,
-with dropout 0.2 when training, and position), in float32.  The keypoint
-heads come with the keypoints slice (ROADMAP §A, keypoints family).
+with flax's dropout 0.2 when training, its mask drawn from an explicit
+generator, and position), in float32.  The keypoint heads come with the
+keypoints slice (ROADMAP §A, keypoints family).
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from spef_tpu_torch.models.layers import Dropout
 
 __all__ = ["URSONetHead"]
 
@@ -29,7 +32,7 @@ class URSONetHead(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        self.ori_dropout = nn.Dropout(dropout_rate)
+        self.ori_dropout = Dropout(dropout_rate)
         self.ori_fc = nn.Linear(in_features, n_ori_outputs, bias=use_bias)
         self.pos_fc = nn.Linear(in_features, n_pos_outputs, bias=use_bias)
         for fc in (self.ori_fc, self.pos_fc):  # reference init: N(0, 0.01), zero bias

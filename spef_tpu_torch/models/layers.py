@@ -11,6 +11,12 @@ math; parameters stay float32 and BatchNorm runs in float32, then casts
 back, as flax's ``BatchNorm(dtype=float32)`` does.  Modules take and return
 NCHW tensors; the backbone keeps them in ``channels_last`` memory, so the
 NHWC <-> NCHW permutes at its edge are free views.
+
+:class:`BatchNorm` is flax's in train mode too: it normalizes by the biased
+batch variance and decays the running statistics toward the *biased* one
+(``torch.nn.BatchNorm2d`` decays toward the unbiased variance, n/(n-1)
+larger).  :class:`Dropout` is flax's, its mask drawn from an explicit
+``torch.Generator`` (:func:`set_dropout_generator`).
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["ConvBnAct", "InvertedResidual", "kaiming_normal_fan_out_"]
+__all__ = ["BatchNorm", "ConvBnAct", "Dropout", "InvertedResidual", "kaiming_normal_fan_out_",
+           "set_dropout_generator"]
 
 BN_EPS = 1e-5
 BN_DECAY = 0.9  # flax momentum: running = 0.9 * running + 0.1 * batch
@@ -29,6 +36,64 @@ BN_DECAY = 0.9  # flax momentum: running = 0.9 * running + 0.1 * batch
 def kaiming_normal_fan_out_(w: torch.Tensor, generator: Optional[torch.Generator]) -> None:
     """Reference conv init: normal with std sqrt(2 / fan_out)."""
     nn.init.kaiming_normal_(w, mode="fan_out", nonlinearity="relu", generator=generator)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """flax's ``BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW float32.
+
+    Eval mode normalizes by the running statistics.  Train mode normalizes
+    by the batch's mean and biased variance and moves the running
+    statistics to ``0.9 * running + 0.1 * batch``, the variance term being
+    the biased one, as flax's.  The batch statistics are the two-pass
+    (Welford) ones of ``F.batch_norm`` and ``torch.var_mean``, where flax
+    takes E[x^2] - E[x]^2 clipped at 0: the two differ by the one-pass
+    form's rounding, about 2^-24 * (var + mean^2), which for a BN input (a
+    mean within a few standard deviations of 0) is float32 noise, a few
+    1e-7 of the variance.  The parameter and buffer names are
+    ``BatchNorm2d``'s, which the flax weight carry maps.
+    """
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=BN_EPS, momentum=1.0 - BN_DECAY)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(BN_DECAY).add_(mean, alpha=1.0 - BN_DECAY)
+            self.running_var.mul_(BN_DECAY).add_(var, alpha=1.0 - BN_DECAY)
+        return torch.nn.functional.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                                              self.eps)
+
+
+class Dropout(nn.Module):
+    """flax's ``Dropout``: in train mode each value is kept with probability
+    ``1 - rate`` and scaled by ``1 / (1 - rate)``.  The mask is drawn from
+    ``self.generator`` (on the input's device), which the caller sets
+    (:func:`set_dropout_generator`); a train-mode call without one raises."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout draws its mask from an explicit torch.Generator: "
+                               "set_dropout_generator(model, generator) first")
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Draw every :class:`Dropout` mask of ``model`` from ``generator``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 class ConvBnAct(nn.Module):
@@ -55,7 +120,7 @@ class ConvBnAct(nn.Module):
         kaiming_normal_fan_out_(self.conv.weight, generator)
         if self.conv.bias is not None:
             nn.init.zeros_(self.conv.bias)
-        self.bn = nn.BatchNorm2d(features, eps=BN_EPS, momentum=1.0 - BN_DECAY) if batchnorm else None
+        self.bn = BatchNorm(features) if batchnorm else None
         self.activation = activation
         self.compute_dtype = compute_dtype
 

@@ -30,7 +30,7 @@ from torch import nn
 
 from spef_tpu_torch.models.flax_msgpack import read_flax_msgpack, write_flax_msgpack
 from spef_tpu_torch.models.heads import URSONetHead
-from spef_tpu_torch.models.mobilenet_v2 import MobileNetV2
+from spef_tpu_torch.models.mobilenet_v2 import MobileNetV2, SmallBackbone, SmallMobile
 
 __all__ = ["ModelWrapper", "import_model", "save_model", "load_flax_variables",
            "flax_state_dict", "flax_variables", "resolve_names"]
@@ -45,6 +45,9 @@ _BACKBONE_ALIASES = {
     "small_mobile_brevitas": "small_mobile_q",
 }
 _HEAD_ALIASES = {"ursonet_pytorch": "ursonet", "ursonet_brevitas": "ursonet_q"}
+
+# The float backbones, by name.
+_BACKBONES = {"mobilenet_v2": MobileNetV2, "small_mobile": SmallMobile, "small": SmallBackbone}
 
 
 def resolve_names(backbone_name: str, head_name: str) -> Tuple[str, str]:
@@ -153,14 +156,19 @@ def import_model(
     seed: int = 1001,
     device: Union[str, torch.device] = "cuda",
     compute_dtype: torch.dtype = torch.bfloat16,
+    pretrained_path: Optional[str] = None,
 ) -> ModelWrapper:
     """Build (and optionally load) a model, in eval mode on ``device``.
 
-    The float ``mobilenet_v2`` + ``ursonet`` (in ``compute_dtype``) and the
-    quantized ``_q`` models (``mobilenet_v2_q``, ``small_mobile_q``,
-    ``small_q`` + ``ursonet_q``, float32, fake-quantized by ``bit_width``
-    when ``quantization``), selected by the ``_q`` suffix as in the JAX
-    factory.  The keypoint heads come with the keypoints family (ROADMAP §A).
+    The float backbones ``mobilenet_v2``, ``small_mobile`` and ``small`` +
+    ``ursonet`` (in ``compute_dtype``) and the quantized ``_q`` models
+    (``mobilenet_v2_q``, ``small_mobile_q``, ``small_q`` + ``ursonet_q``,
+    float32, fake-quantized by ``bit_width`` when ``quantization``),
+    selected by the ``_q`` suffix as in the JAX factory.
+    ``pretrained_path`` warm-starts the backbone from a torchvision-format
+    MobileNetV2 file on disk (``models.pretrained``), before
+    ``params_path`` is loaded.  The keypoint heads come with the keypoints
+    family (ROADMAP §A).
     """
     backbone_name, head_name = resolve_names(backbone_name, head_name)
     if ori_mode == "keypoints" or head_name not in ("ursonet", "ursonet_q"):
@@ -175,12 +183,11 @@ def import_model(
 
         cfg = {"batchnorm": batchnorm, "residual": residual}
         backbone = build_quant_backbone(backbone_name, cfg, bit_width, quantization, gen)
-    elif backbone_name == "mobilenet_v2":
-        backbone = MobileNetV2(out_features=1280, batchnorm=batchnorm, residual=residual,
-                               compute_dtype=compute_dtype, generator=gen)
+    elif backbone_name in _BACKBONES:
+        backbone = _BACKBONES[backbone_name](batchnorm=batchnorm, residual=residual,
+                                             compute_dtype=compute_dtype, generator=gen)
     else:
-        raise NotImplementedError(f"backbone {backbone_name} is not ported yet; the port has "
-                                  "mobilenet_v2 and the _q models")
+        raise ValueError(f"Backbone {backbone_name} does not exist")
     if head_name == "ursonet_q":
         from spef_tpu_torch.quant.qmodels import build_quant_head
 
@@ -190,6 +197,10 @@ def import_model(
         head = URSONetHead(backbone.out_features, n_ori_outputs=n_ori, n_pos_outputs=n_pos,
                            generator=gen)
     model = ModelWrapper(backbone, head, bit_width)
+    if pretrained_path is not None:
+        from spef_tpu_torch.models.pretrained import load_pretrained_backbone
+
+        load_pretrained_backbone(pretrained_path, model)
     if params_path is not None:
         load_flax_variables(model, read_flax_msgpack(params_path))
     return model.to(device=device, memory_format=torch.channels_last).eval()

@@ -236,9 +236,10 @@ def collect_activation_stats(
     max_batches: int = 256,
     device: Union[str, torch.device] = "cuda",
 ) -> Dict[str, HistogramCollector]:
-    """Observe the float net over calibration batches (256 at most); each
-    batch's histograms are taken against its own range on the device and
-    merged on the host (``HistogramCollector.update_hist``)."""
+    """Observe the float net over calibration batches (uint8 NHWC, numpy
+    arrays or tensors; 256 at most); each batch's histograms are taken
+    against its own range on the device and merged on the host
+    (``HistogramCollector.update_hist``)."""
     dev = torch.device(device)
     g = scalars(graph)
     planned = _plan(g, dev)
@@ -249,7 +250,8 @@ def collect_activation_stats(
         for b, images in enumerate(batches):
             if b >= max_batches:
                 break
-            taps = _tap_forward(planned, torch.as_tensor(np.asarray(images)).to(dev))
+            images = images if torch.is_tensor(images) else torch.from_numpy(np.asarray(images))
+            taps = _tap_forward(planned, images.to(dev))
             for site, v in taps.items():
                 amax, counts = _site_stats(v, n_bins)
                 amax = float(amax)

@@ -12,9 +12,9 @@
 The math runs in float32 (fake-quant grids do not survive bf16), NCHW
 tensors in ``channels_last`` memory as in ``models/layers.py``.  Parameters
 sit where the flax tree has them: ``conv.weight`` (the flax ``conv/kernel``,
-OIHW here), ``bn.*`` and ``*_quant.log2_scale``.  BatchNorm in eval mode is
-written out as flax computes it, ``(x - mean) * (rsqrt(var + eps) * scale)
-+ bias``.
+OIHW here), ``bn.*`` and ``*_quant.log2_scale``.  BatchNorm is
+``models.layers.BatchNorm`` (flax's train mode); in eval mode it is written
+out as flax computes it, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from spef_tpu_torch.models.layers import BN_DECAY, BN_EPS, kaiming_normal_fan_out_
+from spef_tpu_torch.models.layers import BatchNorm, kaiming_normal_fan_out_
 from spef_tpu_torch.quant.fake_quant import FakeQuantAct, quantize_weight
 
 __all__ = ["QConv", "QConvBnAct", "QInvertedResidual"]
@@ -67,8 +67,7 @@ class QConvBnAct(nn.Module):
         self.conv = QConv(in_channels, features, kernel_size, stride, padding, groups,
                           weight_bits=weight_bits, quantization=quantization,
                           generator=generator)
-        self.bn = (nn.BatchNorm2d(features, eps=BN_EPS, momentum=1.0 - BN_DECAY)
-                   if batchnorm else None)
+        self.bn = BatchNorm(features) if batchnorm else None
         self.activation = activation
         self.act_quant = (FakeQuantAct(act_bits, signed=False)
                           if activation and quantization and act_bits is not None else None)

@@ -23,20 +23,15 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from spef_tpu_torch.models.mobilenet_v2 import MOBILENET_V2_SETTINGS
+from spef_tpu_torch.models.layers import Dropout
+from spef_tpu_torch.models.mobilenet_v2 import MOBILENET_V2_SETTINGS, SMALL_MOBILE_SETTINGS
 from spef_tpu_torch.quant.bitwidth import default_bit_width
 from spef_tpu_torch.quant.fake_quant import FakeQuantAct, quantize_input_image, quantize_weight
 from spef_tpu_torch.quant.int8_model import f32_convs
 from spef_tpu_torch.quant.qlayers import QConvBnAct, QInvertedResidual
 
 __all__ = ["QMobileNetV2", "QSmallMobile", "QSmallBackbone", "QURSONetHead",
-           "SMALL_MOBILE_SETTINGS", "build_quant_backbone", "build_quant_head"]
-
-# (t, c, n, s) of the two-block debug MobileNet (``spef_tpu.models.mobilenet_v2``).
-SMALL_MOBILE_SETTINGS: Tuple[Tuple[int, int, int, int], ...] = (
-    (6, 32, 1, 1),
-    (6, 32, 1, 2),
-)
+           "build_quant_backbone", "build_quant_head"]
 
 
 class _QBackbone(nn.Module):
@@ -157,7 +152,7 @@ class QURSONetHead(nn.Module):
         self.use_bias = use_bias
         self.pool_quant = (FakeQuantAct(bw.get("pooling", 8), signed=True)
                            if quantization else None)
-        self.ori_dropout = nn.Dropout(dropout_rate)
+        self.ori_dropout = Dropout(dropout_rate)
         for name, n_out in (("ori_fc", n_ori_outputs), ("pos_fc", n_pos_outputs)):
             kernel = torch.empty(in_features, n_out)
             nn.init.normal_(kernel, 0.0, 0.01, generator=generator)  # reference dense init

@@ -1,1 +1,1 @@
-"""Training of the port: for now only the evaluation loop (ROADMAP §A, item 6)."""
+"""Training of the port: losses, optimizers, the train step, the trainer and its checkpoints."""

@@ -514,3 +514,79 @@ def test_carry_forward_bit_for_bit_on_an_integer_recipe(dev):
     want = build_int8_carry_forward(graph, backend="plain", device=dev)(frames)
     for a, b in zip(got, want):
         _same(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Training on the card
+# ---------------------------------------------------------------------------
+
+
+def test_train_steps_on_the_card_match_the_cpu(dev):
+    """Three SGD steps of ``small_mobile`` at 48x64, batch 4, float32 on
+    both sides (TF32 off), no dropout: the losses within 1e-5 relative, the
+    parameters and BN statistics within 1e-5 (as the CPU steps are held to
+    JAX's in ``tests/test_torch_train_step.py``)."""
+    from spef_tpu_torch.codec.facade import SPEUtils
+    from spef_tpu_torch.data.camera import DSPEED_CAMERA
+    from spef_tpu_torch.models.wrapper import import_model
+    from spef_tpu_torch.train.loss import SPELoss
+    from spef_tpu_torch.train.optimizer import import_optimizer
+    from spef_tpu_torch.train.step import create_train_state, make_train_step
+
+    rs = np.random.RandomState(0)
+    images = rs.rand(3, 4, 48, 64, 3).astype(np.float32)
+    q = rs.randn(3, 4, 4).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    pos = np.stack([rs.uniform(-1, 1, (3, 4)), rs.uniform(-1, 1, (3, 4)),
+                    rs.uniform(5, 30, (3, 4))], -1).astype(np.float32)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {}
+        for where in (dev, torch.device("cpu")):
+            utils = SPEUtils.create(DSPEED_CAMERA, ori_mode="classification",
+                                    n_ori_bins_per_dim=4, pos_mode="regression", device=where)
+            model = import_model("small_mobile", "ursonet", ori_mode="classification",
+                                 n_ori_bins=utils.orientation.n_bins, pos_mode="regression",
+                                 device=where, compute_dtype=torch.float32, seed=3)
+            model.head.ori_dropout.rate = 0.0
+            opt, _ = import_optimizer(model.parameters(), 0.01, "SGD", 0.9, 1e-4)
+            state = create_train_state(model, opt)
+            step = make_train_step(utils, SPELoss("classification", "regression"))
+            gen = torch.Generator(device=where).manual_seed(0)
+            losses = []
+            for i in range(3):
+                targets = utils.encode_targets(torch.from_numpy(q[i]).to(where),
+                                               torch.from_numpy(pos[i]).to(where))
+                _, m = step(state, torch.from_numpy(images[i]).to(where), targets, gen)
+                losses.append(float(m["loss"]))
+            runs[where.type] = (losses, {k: v.detach().cpu() for k, v in
+                                         model.state_dict().items()})
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5)
+    for k, v in runs["cpu"][1].items():
+        if v.is_floating_point():
+            np.testing.assert_allclose(runs["cuda"][1][k].numpy(), v.numpy(), rtol=0, atol=1e-5,
+                                       err_msg=k)
+
+
+def test_device_resident_loader_matches_the_host_loader(dev, tmp_path):
+    """``CachedBatchLoader(device_resident=True)`` on the card gives the
+    streaming loader's batches: the images gathered on the card, padding
+    rows zero, two shuffled epochs."""
+    from spef_tpu_torch.data import dataset
+    from spef_tpu_torch.data.synthetic import create_synthetic_dataset
+
+    still = create_synthetic_dataset(str(tmp_path), 7, 2, 2, img_size=(36, 60), seed=3)
+    manifest = dataset.Manifest.from_json(os.path.join(still, "train", "pose.json"),
+                                          os.path.join(still, "train", "images"))
+    host = dataset.BatchLoader(manifest, 3, (36, 60), shuffle=True, seed=5, n_workers=2)
+    card = dataset.CachedBatchLoader(manifest, 3, (36, 60), shuffle=True, seed=5, n_workers=2,
+                                     device_resident=True, device=dev)
+    for _ in range(2):
+        for want, got in zip(list(host), list(card)):
+            assert got["images"].device.type == "cuda"
+            assert torch.equal(got["images"].cpu(), torch.from_numpy(want["images"]))
+            for k in ("ori", "pos", "mask"):
+                np.testing.assert_array_equal(got[k], want[k])

@@ -11,8 +11,9 @@
   * ``Manifest``: the label-key aliases and the numeric filename sort.
   * ``detect_dataset`` / ``load_dataset`` on the four layouts (SPEED, SPEED+,
     D-SPEED still and video): the same family, split names and loader
-    lengths as JAX's.  A JPEG file, the host-side rotation augmentation and
-    the split cache raise, naming the ROADMAP item that ports them.
+    lengths as JAX's.  A JPEG file and the host-side rotation augmentation
+    raise, naming the ROADMAP item that ports them (the split cache,
+    ``CachedBatchLoader``, is held in ``tests/test_torch_cached_loader.py``).
 
 Tolerance: none; every comparison is exact.
 """
@@ -155,5 +156,5 @@ def test_what_is_not_ported_raises(tmp_path, still):
         next(iter(data["real"]))
     with pytest.raises(NotImplementedError, match="item 7"):
         dataset.load_dataset(still, 2, HW, rot_augment=lambda *a: a)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        dataset.load_dataset(still, 2, HW, cache=True)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        dataset.load_dataset(still, 2, HW, rot_augment=lambda *a: a, cache=True)

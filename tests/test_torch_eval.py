@@ -173,7 +173,7 @@ def test_eval_app_on_cpu_matches_the_jax_app(tmp_path, capsys):
 def test_eval_app_refuses_what_it_does_not_port(tmp_path):
     from spef_tpu_torch.apps import eval as port_eval
 
-    for flags, item in ((["--cache-dataset"], "item 6"), (["--ransac"], "item 8"),
+    for flags, item in ((["--ransac"], "item 8"),
                         (["--border-gate", "0.02"], "item 8"),
                         (["--crop-refine", "x"], "item 8")):
         with pytest.raises(NotImplementedError, match=item):

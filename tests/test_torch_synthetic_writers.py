@@ -8,6 +8,7 @@ against the JAX writers (``cv2.imwrite``), at a tiny size.
   * ``_create_test_split``: the writer's test split, with the train and
     valid splits' draws replayed and not rendered, in one process and with
     the frames rendered and written by two worker processes.
+  * ``create_synthetic_dataset(workers=2)``: the files of one process.
 
 Tolerance: none; every comparison is exact.
 """
@@ -82,3 +83,10 @@ def test_test_split_replay_gives_the_writers_test_split(written, tmp_path, worke
     still = synthetic._create_test_split(str(tmp_path), 3, 2, 4, img_size=HW, workers=workers)
     assert sorted(os.listdir(still)) == ["test"]  # train and valid are not rendered
     assert len(_same_split(os.path.join(still, "test"), os.path.join(jax_still, "test"))) == 4
+
+
+def test_create_synthetic_dataset_in_worker_processes(written, tmp_path):
+    _, _, jax_still = written
+    still = synthetic.create_synthetic_dataset(str(tmp_path), 3, 2, 4, img_size=HW, workers=2)
+    for split, n in (("train", 3), ("valid", 2), ("test", 4)):
+        assert len(_same_split(os.path.join(still, split), os.path.join(jax_still, split))) == n
