@@ -79,7 +79,7 @@ each printed on its own lines; any failure exits nonzero:
      between executors (mean, p99, max, in degrees and metres); each
      executor's kernels within 0.3 logit of its plain backend on the first
      256 test frames; the seconds of each step and the PNG decode time a
-     frame; then ``bench.py``'s construction once (a random-init ``_q``
+     frame; after phase 12, ``bench.py``'s construction once (a random-init ``_q``
      model at 256x256, boundary recipe, carry + decode, batch 256), its
      frames/s printed;
   9. each kernel at its path's own inputs (batch 256): mismatches (K1's
@@ -113,7 +113,27 @@ each printed on its own lines; any failure exits nonzero:
      ``int8_graph.pkl`` served by ``apps.serve --int8-executor carry`` and
      ``layer`` on K1/K2 (launches counted), within 0.3 logit of its plain
      backend on 64 frames; the set removed;
- 12. the last line: ``{"ok": true, "device": {...}}``.
+ 12. the keypoints family, on phase 8's test split (written before phase 8
+     and removed after this one): (a) the decoder alone, EPnP, RANSAC and
+     RANSAC + border gate 0.02 on JAX's keypoints of the first 256 test
+     frames (``assets/keypoints_decode_ref.npz``), each frame's pose
+     distance from JAX's printed, median at most 0.01 deg and at most 4%
+     (EPnP) or 20% (RANSAC) of the frames beyond 1 deg, about twice the
+     port's shares on the CPU; (b) the six rows of
+     ``assets/keypoints_test_esa.json`` on the 2,000 frames (the heatmap
+     model by EPnP, RANSAC and gated RANSAC, the regression model by EPnP,
+     the registry's two-pass pair by RANSAC through ``python -m
+     spef_tpu_torch.apps.eval --ransac --crop-refine``, and its
+     ``crop-refine-w8`` engine variant), each test ESA within 0.01 of JAX's
+     on the same frames, the TPU-era recorded ESAs printed beside them; the
+     launch counters read 0 (no hand kernel on this path); (c) CUDA-event
+     times at batches 1 and 256 of the coarse forward, the EPnP and RANSAC
+     decodes, ``crop_resize``, the fine forward and the two-pass predict,
+     the kernels each decode launches (``torch.profiler``) and its host
+     synchronizations (``torch.cuda.set_sync_debug_mode("warn")``), and
+     request p50 through ``PoseServer`` for the two-pass pipeline at serve
+     windows 1 and 64;
+ 13. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, where ``torch.cuda.is_available()`` is
 false or the package is missing.
@@ -1635,27 +1655,41 @@ class _PoseRecorder:
         return pose, ms
 
 
-def _timed(label, fn):
+def _timed(label, fn, tag="accuracy"):
     t0 = time.perf_counter()
     out = fn()
-    log(f"[accuracy] {label}: {time.perf_counter() - t0:.2f} s")
+    log(f"[{tag}] {label}: {time.perf_counter() - t0:.2f} s")
     return out
 
 
-def phase_accuracy(torch, np, dev):
-    """The flagship's test split written and loaded through the port's writer
-    and loader; the float flagship evaluated by ``apps.eval`` and the
+def write_test_split(root):
+    """The flagship's 2,000-frame test split, written by the port's writer
+    under ``root`` (phases 8 and 12 read it); returns its still root."""
+    from spef_tpu_torch.data.synthetic import _create_test_split
+
+    workers = max(1, min(8, (os.cpu_count() or 1) - 1))
+    return _timed(
+        f"test split written ({SPLIT['n_test']} frames at 240x384, seed 1001, the "
+        f"{SPLIT['n_train']} + {SPLIT['n_valid']} earlier frames' draws replayed; "
+        f"{workers} render processes)",
+        lambda: _create_test_split(root, img_size=(240, 384), seed=1001, workers=workers,
+                                   **SPLIT))
+
+
+def phase_accuracy(torch, np, dev, still):
+    """The flagship's test split (``write_test_split``) loaded through the
+    port's loader; the float flagship evaluated by ``apps.eval`` and the
     committed int8 graph by the three executors on the kernels; each ESA
     held to its reference; the executors' per-frame pose distances; each
     executor's kernels within 0.3 logit of its plain backend on 256 of
     these frames.  Every number is printed before a gate that failed is
-    raised.  Returns {executor: launches over its evaluation}."""
+    raised.  Returns ({executor: launches over its evaluation}, the loaded
+    test batches)."""
     from spef_tpu_torch.apps import eval as eval_app
     from spef_tpu_torch.codec.facade import SPEUtils
     from spef_tpu_torch.data.camera import load_camera
     from spef_tpu_torch.data.dataset import load_dataset
     from spef_tpu_torch.data.png import _unfilter_wavefront, read_png
-    from spef_tpu_torch.data.synthetic import _create_test_split
     from spef_tpu_torch.engine import SPETorch
     from spef_tpu_torch.quant.int8_carry import build_int8_carry_forward
     from spef_tpu_torch.quant.int8_cuda import build_cuda_forward
@@ -1667,122 +1701,328 @@ def phase_accuracy(torch, np, dev):
         recorded = json.load(f)["scores"]["test"]["esa"][0]
     with open(ESA_RECORD) as f:
         jax_record = json.load(f)
-    root = os.path.join(REPO, "build", f"chip_smoke_dspeed_{os.getpid()}")
     split = SPLIT
-    try:
-        workers = max(1, min(8, (os.cpu_count() or 1) - 1))
-        still = _timed(
-            f"test split written ({split['n_test']} frames at 240x384, seed 1001, the "
-            f"{split['n_train']} + {split['n_valid']} earlier frames' draws replayed; "
-            f"{workers} render processes)",
-            lambda: _create_test_split(root, img_size=(240, 384), seed=1001, workers=workers,
-                                       **split))
-        files = sorted(os.listdir(os.path.join(still, "test", "images")))[:100]
-        t0 = time.perf_counter()
-        for name in files:
-            read_png(os.path.join(still, "test", "images", name))
-        log(f"[accuracy] PNG decode: {(time.perf_counter() - t0) / len(files) * 1e3:.3f} ms a "
-            f"240x384 frame (mean of {len(files)}, one thread)")
-        # Files of other writers (PIL's adaptive filters) hold Average and
-        # Paeth rows, which take the anti-diagonal path; its time does not
-        # depend on the data.
-        rows = np.random.RandomState(0).randint(0, 256, (240, 384 * 3)).astype(np.uint8)
-        t0 = time.perf_counter()
-        _unfilter_wavefront(rows, np.full(240, 4, np.uint8), 3)
-        log(f"[accuracy] PNG unfilter of a 240x384 frame of Paeth rows (anti-diagonals): "
-            f"{(time.perf_counter() - t0) * 1e3:.3f} ms, one thread")
+    root = os.path.dirname(os.path.normpath(still))
+    files = sorted(os.listdir(os.path.join(still, "test", "images")))[:100]
+    t0 = time.perf_counter()
+    for name in files:
+        read_png(os.path.join(still, "test", "images", name))
+    log(f"[accuracy] PNG decode: {(time.perf_counter() - t0) / len(files) * 1e3:.3f} ms a "
+        f"240x384 frame (mean of {len(files)}, one thread)")
+    # Files of other writers (PIL's adaptive filters) hold Average and
+    # Paeth rows, which take the anti-diagonal path; its time does not
+    # depend on the data.
+    rows = np.random.RandomState(0).randint(0, 256, (240, 384 * 3)).astype(np.uint8)
+    t0 = time.perf_counter()
+    _unfilter_wavefront(rows, np.full(240, 4, np.uint8), 3)
+    log(f"[accuracy] PNG unfilter of a 240x384 frame of Paeth rows (anti-diagonals): "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms, one thread")
 
-        # Float: the flagship through apps.eval, as a user runs it.  The
-        # experiment is a copy whose model/ is the flagship's, so the scores
-        # it writes land there.
-        exp = os.path.join(root, "exp_dspeed_synth")
-        os.makedirs(exp)
-        shutil.copy(os.path.join(FLAGSHIP, "config.yaml"), exp)
-        os.symlink(os.path.join(FLAGSHIP, "model"), os.path.join(exp, "model"))
+    # Float: the flagship through apps.eval, as a user runs it.  The
+    # experiment is a copy whose model/ is the flagship's, so the scores
+    # it writes land there.
+    exp = os.path.join(root, "exp_dspeed_synth")
+    os.makedirs(exp)
+    shutil.copy(os.path.join(FLAGSHIP, "config.yaml"), exp)
+    os.symlink(os.path.join(FLAGSHIP, "model"), os.path.join(exp, "model"))
+    _reset_counters()
+    score, error = _timed(
+        "float flagship: python -m spef_tpu_torch.apps.eval (load, forward, score)",
+        lambda: eval_app.main(["--experiment", exp, "--data", still]))
+    _read_counters("accuracy:float", 0, {})
+    with open(os.path.join(exp, "eval_score_error.json")) as f:
+        written = json.load(f)
+    assert written["scores"]["test"]["esa"][0] == score["test"]["esa"][0]
+    assert os.path.isfile(os.path.join(exp, "eval_score_error_scores.csv"))
+    float_esa = score["test"]["esa"][0]
+    log(f"[accuracy] float test ESA {float_esa:.6f} (recorded {recorded:.6f}, JAX on the "
+        f"CPU over these frames {jax_record['float']['esa']:.6f}), ori "
+        f"{error['test']['ori'][0]:.3f} deg, pos {error['test']['pos'][0]:.4f} m")
+    failed = []
+    if abs(float_esa - recorded) > FLOAT_ESA_TOL:
+        failed.append(f"float test ESA {float_esa} is {abs(float_esa - recorded):.5f} from "
+                      f"the recorded {recorded} (at most {FLOAT_ESA_TOL})")
+
+    # Int8: the committed graph on the same loader batches.
+    data, splits = load_dataset(still, EVAL_BATCH, (240, 384))
+    assert splits["eval"] == ("test",), splits
+    batches = _timed(f"test split loaded ({len(data['test'])} batches of "
+                           f"{EVAL_BATCH})", lambda: list(data["test"]))
+    n = int(sum(b["mask"].sum() for b in batches))
+    assert n == split["n_test"], n
+    graph = load_int8_graph(ASSET)
+    utils = SPEUtils.create(load_camera(still), ori_mode="classification",
+                            pos_mode="classification", device=dev)
+    executors = {"layer": (build_cuda_forward, LAYER_LAUNCHES),
+                 "fused": (build_fused_forward, FUSED_LAUNCHES),
+                 "carry": (build_int8_carry_forward, CARRY_LAUNCHES)}
+    esa, poses, launches = {}, {}, {}
+    for name, (build, per_forward) in executors.items():
+        rec = _PoseRecorder(SPETorch(None, utils, forward_fn=build(graph, backend="cuda",
+                                                                   device=dev), device=dev))
         _reset_counters()
-        score, error = _timed(
-            "float flagship: python -m spef_tpu_torch.apps.eval (load, forward, score)",
-            lambda: eval_app.main(["--experiment", exp, "--data", still]))
-        _read_counters("accuracy:float", 0, {})
-        with open(os.path.join(exp, "eval_score_error.json")) as f:
-            written = json.load(f)
-        assert written["scores"]["test"]["esa"][0] == score["test"]["esa"][0]
-        assert os.path.isfile(os.path.join(exp, "eval_score_error_scores.csv"))
-        float_esa = score["test"]["esa"][0]
-        log(f"[accuracy] float test ESA {float_esa:.6f} (recorded {recorded:.6f}, JAX on the "
-            f"CPU over these frames {jax_record['float']['esa']:.6f}), ori "
-            f"{error['test']['ori'][0]:.3f} deg, pos {error['test']['pos'][0]:.4f} m")
-        failed = []
-        if abs(float_esa - recorded) > FLOAT_ESA_TOL:
-            failed.append(f"float test ESA {float_esa} is {abs(float_esa - recorded):.5f} from "
-                          f"the recorded {recorded} (at most {FLOAT_ESA_TOL})")
+        score, error = _timed(f"{name} executor: evaluation over the test split",
+                                    lambda: evaluation(rec, {"test": batches}, utils,
+                                                       ("test",)))
+        launches[name] = _read_counters(f"accuracy:{name}", len(batches), per_forward)
+        esa[name] = score["test"]["esa"][0]
+        poses[name] = (torch.cat(rec.ori)[:n].numpy(), torch.cat(rec.pos)[:n].numpy())
+        log(f"[accuracy] {name} test ESA {esa[name]:.6f}, ori {error['test']['ori'][0]:.3f} "
+            f"deg, pos {error['test']['pos'][0]:.4f} m")
+    for a, b in (("layer", "carry"), ("fused", "carry"), ("layer", "fused")):
+        dot = np.clip(np.abs((poses[a][0] * poses[b][0]).sum(-1)), 0.0, 1.0)
+        ang = 2.0 * np.degrees(np.arccos(dot))
+        dist = np.linalg.norm(poses[a][1] - poses[b][1], axis=-1)
+        log(f"[accuracy] {a} vs {b} over {n} frames: orientation mean {ang.mean():.4f} deg, "
+            f"p99 {np.percentile(ang, 99):.4f}, max {ang.max():.4f}; position mean "
+            f"{dist.mean():.5f} m, p99 {np.percentile(dist, 99):.5f}, max {dist.max():.5f}")
+    jax_carry = jax_record["int8_carry"]["esa"]
+    log(f"[accuracy] carry {esa['carry']:.6f} vs JAX int8_carry {jax_carry:.6f} "
+        f"(d {abs(esa['carry'] - jax_carry):.6f}, at most {CARRY_ESA_TOL}); layer d "
+        f"{abs(esa['layer'] - esa['carry']):.6f}, fused d "
+        f"{abs(esa['fused'] - esa['carry']):.6f} from the carry (at most {EXECUTOR_ESA_TOL})")
 
-        # Int8: the committed graph on the same loader batches.
-        data, splits = load_dataset(still, EVAL_BATCH, (240, 384))
-        assert splits["eval"] == ("test",), splits
-        batches = _timed(f"test split loaded ({len(data['test'])} batches of "
-                               f"{EVAL_BATCH})", lambda: list(data["test"]))
-        n = int(sum(b["mask"].sum() for b in batches))
-        assert n == split["n_test"], n
-        graph = load_int8_graph(ASSET)
-        utils = SPEUtils.create(load_camera(still), ori_mode="classification",
-                                pos_mode="classification", device=dev)
-        executors = {"layer": (build_cuda_forward, LAYER_LAUNCHES),
-                     "fused": (build_fused_forward, FUSED_LAUNCHES),
-                     "carry": (build_int8_carry_forward, CARRY_LAUNCHES)}
-        esa, poses, launches = {}, {}, {}
-        for name, (build, per_forward) in executors.items():
-            rec = _PoseRecorder(SPETorch(None, utils, forward_fn=build(graph, backend="cuda",
-                                                                       device=dev), device=dev))
-            _reset_counters()
-            score, error = _timed(f"{name} executor: evaluation over the test split",
-                                        lambda: evaluation(rec, {"test": batches}, utils,
-                                                           ("test",)))
-            launches[name] = _read_counters(f"accuracy:{name}", len(batches), per_forward)
-            esa[name] = score["test"]["esa"][0]
-            poses[name] = (torch.cat(rec.ori)[:n].numpy(), torch.cat(rec.pos)[:n].numpy())
-            log(f"[accuracy] {name} test ESA {esa[name]:.6f}, ori {error['test']['ori'][0]:.3f} "
-                f"deg, pos {error['test']['pos'][0]:.4f} m")
-        for a, b in (("layer", "carry"), ("fused", "carry"), ("layer", "fused")):
-            dot = np.clip(np.abs((poses[a][0] * poses[b][0]).sum(-1)), 0.0, 1.0)
-            ang = 2.0 * np.degrees(np.arccos(dot))
-            dist = np.linalg.norm(poses[a][1] - poses[b][1], axis=-1)
-            log(f"[accuracy] {a} vs {b} over {n} frames: orientation mean {ang.mean():.4f} deg, "
-                f"p99 {np.percentile(ang, 99):.4f}, max {ang.max():.4f}; position mean "
-                f"{dist.mean():.5f} m, p99 {np.percentile(dist, 99):.5f}, max {dist.max():.5f}")
-        jax_carry = jax_record["int8_carry"]["esa"]
-        log(f"[accuracy] carry {esa['carry']:.6f} vs JAX int8_carry {jax_carry:.6f} "
-            f"(d {abs(esa['carry'] - jax_carry):.6f}, at most {CARRY_ESA_TOL}); layer d "
-            f"{abs(esa['layer'] - esa['carry']):.6f}, fused d "
-            f"{abs(esa['fused'] - esa['carry']):.6f} from the carry (at most {EXECUTOR_ESA_TOL})")
+    # The 0.3-logit gate of phases 4, 5 and 7, on 256 rendered frames.
+    x = torch.from_numpy(np.concatenate([b["images"] for b in batches])[:BATCH]).to(dev)
+    for name, (build, _) in executors.items():
+        got = build(graph, backend="cuda", device=dev)(x)
+        want = build(graph, backend="plain", device=dev)(x)
+        torch.cuda.synchronize()
+        pose_of = lambda lg: {k: v.cpu().numpy() for k, v in utils.decode(  # noqa: E731
+            utils.last_activ({"ori_soft": lg[0], "pos_soft": lg[1]})).items()}
+        d = log_distance(np, f"accuracy:{name}", "kernels vs plain backend on the first test "
+                         "frames", (pose_of(got), got), (pose_of(want), want))
+        if not d < 0.3:
+            failed.append(f"{name}: kernels {d} in logits from the plain backend on "
+                          f"rendered frames (at most 0.3)")
+    if abs(esa["carry"] - jax_carry) > CARRY_ESA_TOL:
+        failed.append(f"carry test ESA {esa['carry']} is "
+                      f"{abs(esa['carry'] - jax_carry):.5f} from JAX's {jax_carry} "
+                      f"(at most {CARRY_ESA_TOL})")
+    for name in ("layer", "fused"):
+        if abs(esa[name] - esa["carry"]) > EXECUTOR_ESA_TOL:
+            failed.append(f"{name} test ESA {esa[name]} is "
+                          f"{abs(esa[name] - esa['carry']):.5f} from the carry's (at most "
+                          f"{EXECUTOR_ESA_TOL})")
+    if failed:
+        raise AssertionError("accuracy gates failed: " + "; ".join(failed))
+    return launches, batches
 
-        # The 0.3-logit gate of phases 4, 5 and 7, on 256 rendered frames.
-        x = torch.from_numpy(np.concatenate([b["images"] for b in batches])[:BATCH]).to(dev)
-        for name, (build, _) in executors.items():
-            got = build(graph, backend="cuda", device=dev)(x)
-            want = build(graph, backend="plain", device=dev)(x)
-            torch.cuda.synchronize()
-            pose_of = lambda lg: {k: v.cpu().numpy() for k, v in utils.decode(  # noqa: E731
-                utils.last_activ({"ori_soft": lg[0], "pos_soft": lg[1]})).items()}
-            d = log_distance(np, f"accuracy:{name}", "kernels vs plain backend on the first test "
-                             "frames", (pose_of(got), got), (pose_of(want), want))
-            if not d < 0.3:
-                failed.append(f"{name}: kernels {d} in logits from the plain backend on "
-                              f"rendered frames (at most 0.3)")
-        if abs(esa["carry"] - jax_carry) > CARRY_ESA_TOL:
-            failed.append(f"carry test ESA {esa['carry']} is "
-                          f"{abs(esa['carry'] - jax_carry):.5f} from JAX's {jax_carry} "
-                          f"(at most {CARRY_ESA_TOL})")
-        for name in ("layer", "fused"):
-            if abs(esa[name] - esa["carry"]) > EXECUTOR_ESA_TOL:
-                failed.append(f"{name} test ESA {esa[name]} is "
-                              f"{abs(esa[name] - esa['carry']):.5f} from the carry's (at most "
-                              f"{EXECUTOR_ESA_TOL})")
-        if failed:
-            raise AssertionError("accuracy gates failed: " + "; ".join(failed))
-        return launches
+
+SYNTH = os.path.join(REPO, "experiments", "train_synth")
+KP_COARSE = os.path.join(SYNTH, "exp_keypoints_heatmap_synth")
+KP_FINE = os.path.join(SYNTH, "exp_keypoints_crop2_synth")
+KP_REGRESSION = os.path.join(SYNTH, "exp_keypoints_synth")
+KP_RECORD = os.path.join(REPO, "spef_tpu_torch", "assets", "keypoints_test_esa.json")
+KP_NPZ = os.path.join(REPO, "spef_tpu_torch", "assets", "keypoints_decode_ref.npz")
+KP_DECODES = {"epnp": dict(ransac=False, border_gate=None),
+              "ransac": dict(ransac=True, border_gate=None),
+              "ransac_gate": dict(ransac=True, border_gate=0.02)}
+# The decoder against JAX's on the same keypoints: the median distance, and
+# the share of frames beyond KP_FAR_DEG by decode, set from the port's CPU
+# run against the npz (1.95% / 10.16% / 11.33% beyond 1 deg), about twice
+# those (tests/test_torch_keypoints_esa.py holds the CPU to the same gates).
+KP_MEDIAN_DEG = 0.01
+KP_FAR_DEG = 1.0
+KP_FAR_SHARE = {"epnp": 0.04, "ransac": 0.2, "ransac_gate": 0.2}
+KP_ESA_TOL = 0.01  # each row against JAX's on the same frames
+KP_WINDOWS = (1, 64)
+
+
+def _pose_distance(np, q_a, t_a, q_b, t_b):
+    q_a, t_a, q_b, t_b = (np.asarray(x, np.float64) for x in (q_a, t_a, q_b, t_b))
+    dot = np.clip(np.abs((q_a * q_b).sum(-1)), 0.0, 1.0)
+    return 2.0 * np.degrees(np.arccos(dot)), np.linalg.norm(t_a - t_b, axis=-1)
+
+
+def _recorded_esa(exp, name):
+    """A committed eval sidecar's test ESA (the JAX package's own run)."""
+    path = os.path.join(exp, f"{name}.json")
+    if not os.path.isfile(path):
+        return None
+    with open(path) as f:
+        return json.load(f)["scores"]["test"]["esa"][0]
+
+
+def _kernels_and_syncs(torch, fn):
+    """(CUDA kernels one call of ``fn`` launches by ``torch.profiler``, copies
+    and memsets left out, or None where the profiler sees no device
+    activity; the host synchronizations the call makes under
+    ``torch.cuda.set_sync_debug_mode("warn")``, counted by the source line
+    that made them)."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.lower().startswith(("memcpy", "memset")))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    where = {}
+    for w in caught:
+        if "synchroniz" in str(w.message).lower():
+            key = f"{os.path.basename(w.filename)}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return (kernels or None), where
+
+
+def phase_keypoints(torch, np, dev, still, batches):
+    """The keypoints family on the card: (a) the decoder alone on JAX's
+    keypoints of 256 test frames (``keypoints_decode_ref.npz``), each
+    decode's per-frame distance from JAX's pose; (b) the six rows of
+    ``keypoints_test_esa.json`` on the 2,000 test frames of phase 8, each
+    test ESA within ``KP_ESA_TOL`` of JAX's, the two-pass RANSAC row through
+    ``python -m spef_tpu_torch.apps.eval``; (c) CUDA-event times at batches 1
+    and 256 of the forwards, the decodes, ``crop_resize`` and the two-pass
+    predict, request p50 through ``PoseServer`` at serve windows 1 and 64,
+    the kernels each decode launches (``torch.profiler``) and the host
+    synchronizations it makes.  No hand kernel is on this path: the launch
+    counters must read 0.  Every number is printed before a failed gate
+    raises."""
+    from spef_tpu_torch.apps import eval as eval_app
+    from spef_tpu_torch.codec.crop import crop_box_from_keypoints, crop_resize
+    from spef_tpu_torch.codec.facade import SPEUtils
+    from spef_tpu_torch.data.camera import load_camera
+    from spef_tpu_torch.engine import (SPETorch, build_crop_refine_fn, build_engine_variant,
+                                       load_experiment_model)
+    from spef_tpu_torch.serving import PoseServer
+    from spef_tpu_torch.train.trainer import evaluation
+
+    with open(KP_RECORD) as f:
+        record = json.load(f)
+    camera = load_camera(still)
+    failed = []
+
+    def utils(ransac=False, border_gate=None):
+        return SPEUtils.create(camera, ori_mode="keypoints", pos_mode="keypoints",
+                               keypoints_ransac=ransac, keypoints_border_gate=border_gate,
+                               device=dev)
+
+    # (a) The decoder alone, on JAX's keypoints.
+    with np.load(KP_NPZ) as z:
+        ref = {k: z[k] for k in z.files}
+    kp = torch.from_numpy(ref["keypoints"]).to(dev)
+    kpts = utils().keypoints
+    for name, kw in KP_DECODES.items():
+        out = kpts.decode_batch(kp, **kw)
+        assert out["ori"].device.type == out["pos"].device.type == dev.type  # no CPU fallback
+        ang, dist = _pose_distance(np, out["ori"].cpu(), out["pos"].cpu(), ref[f"{name}_ori"],
+                                   ref[f"{name}_pos"])
+        far = float(np.mean(ang > KP_FAR_DEG))
+        log(f"[keypoints:decode] {name} on JAX's keypoints of {len(ang)} test frames, pose "
+            f"distance from JAX's: median {np.median(ang):.5f} deg, p90 "
+            f"{np.percentile(ang, 90):.5f}, p99 {np.percentile(ang, 99):.4f}, max "
+            f"{ang.max():.4f} deg; {100 * far:.2f}% beyond {KP_FAR_DEG} deg; position median "
+            f"{np.median(dist):.6f} m, max {dist.max():.4f} m")
+        if not (np.median(ang) <= KP_MEDIAN_DEG and far <= KP_FAR_SHARE[name]):
+            failed.append(f"decoder {name}: median {np.median(ang):.5f} deg (at most "
+                          f"{KP_MEDIAN_DEG}), {100 * far:.2f}% beyond {KP_FAR_DEG} deg (at "
+                          f"most {100 * KP_FAR_SHARE[name]}%)")
+
+    # (b) The six rows on the test split.
+    coarse = load_experiment_model(KP_COARSE, device=dev)
+    regression = load_experiment_model(KP_REGRESSION, device=dev)
+    data = {"test": batches}
+    esa = {}
+    _reset_counters()
+    n_forwards = 0
+    for row, (model, kw) in {"coarse_epnp": (coarse, KP_DECODES["epnp"]),
+                             "coarse_ransac": (coarse, KP_DECODES["ransac"]),
+                             "coarse_ransac_gate": (coarse, KP_DECODES["ransac_gate"]),
+                             "regression_epnp": (regression, KP_DECODES["epnp"])}.items():
+        u = utils(kw["ransac"], kw["border_gate"])
+        score, error = _timed(f"{row}: evaluation over the test split",
+                              lambda: evaluation(SPETorch(model, u, device=dev), data, u,
+                                                 ("test",)), "keypoints")
+        esa[row] = (score["test"]["esa"][0], error["test"]["ori"][0], error["test"]["pos"][0])
+        n_forwards += len(batches)
+    # The registry's two-pass pair through apps.eval, as a user runs it.
+    exp = os.path.join(os.path.dirname(os.path.normpath(still)), "exp_keypoints_heatmap_synth")
+    os.makedirs(exp, exist_ok=True)
+    shutil.copy(os.path.join(KP_COARSE, "config.yaml"), exp)
+    os.symlink(os.path.join(KP_COARSE, "model"), os.path.join(exp, "model"))
+    score, error = _timed(
+        "crop_refine_ransac: python -m spef_tpu_torch.apps.eval --ransac --crop-refine "
+        "exp_keypoints_crop2_synth (load, two passes, decode, score)",
+        lambda: eval_app.main(["--experiment", exp, "--data", still, "--ransac",
+                               "--crop-refine", KP_FINE, "--device", dev.type]), "keypoints")
+    assert os.path.isfile(os.path.join(exp, "eval_score_error_ransac_croprefine.json"))
+    esa["crop_refine_ransac"] = (score["test"]["esa"][0], error["test"]["ori"][0],
+                                 error["test"]["pos"][0])
+    cwd = os.getcwd()
+    os.chdir(REPO)  # the committed registry names its fine model from the repo root
+    try:
+        w8 = build_engine_variant(KP_COARSE, coarse, utils(True), "crop-refine-w8", device=dev)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        os.chdir(cwd)
+    score, error = _timed("crop_refine_w8_ransac: evaluation over the test split",
+                          lambda: evaluation(w8, data, w8.spe_utils, ("test",)), "keypoints")
+    esa["crop_refine_w8_ransac"] = (score["test"]["esa"][0], error["test"]["ori"][0],
+                                    error["test"]["pos"][0])
+    _read_counters("keypoints", n_forwards, {})
+    tpu_era = {"coarse_epnp": _recorded_esa(KP_COARSE, "eval_score_error"),
+               "coarse_ransac": _recorded_esa(KP_COARSE, "eval_score_error_ransac"),
+               "regression_epnp": _recorded_esa(KP_REGRESSION, "eval_score_error")}
+    for row, (e, ori, pos) in esa.items():
+        want = record["rows"][row]["esa"]
+        era = tpu_era.get(row)
+        log(f"[keypoints:accuracy] {row}: test ESA {e:.6f} (JAX on the CPU over these frames "
+            f"{want:.6f}, d {abs(e - want):.6f}, at most {KP_ESA_TOL}), ori {ori:.3f} deg, pos "
+            f"{pos:.4f} m" + (f"; the TPU-era recorded ESA {era:.4f}, other frames, for "
+                              f"information" if era is not None else ""))
+        if abs(e - want) > KP_ESA_TOL:
+            failed.append(f"{row}: test ESA {e} is {abs(e - want):.5f} from JAX's {want}")
+
+    # (c) Times on the card.
+    fine = load_experiment_model(KP_FINE, device=dev)
+    frames = torch.from_numpy(np.concatenate([b["images"] for b in batches])[:BATCH]).to(dev)
+    u_epnp, u_ransac = utils(), utils(True)
+    two_pass = build_crop_refine_fn(coarse, fine, u_ransac, crop_hw=(240, 384))
+    for b in (1, BATCH):
+        x8 = frames[:b]
+        x = x8.float() / 255.0
+        with torch.inference_mode():
+            k = torch.sigmoid(coarse(x))
+            box = crop_box_from_keypoints(k, 1.5)
+            crops = crop_resize(x, box, (240, 384))
+            parts = {
+                "coarse forward": lambda: coarse(x),
+                "EPnP decode": lambda: u_epnp.decode({"keypoints": k}),
+                "RANSAC decode": lambda: u_ransac.decode({"keypoints": k}),
+                "crop_resize": lambda: crop_resize(x, box, (240, 384)),
+                "fine forward": lambda: fine(crops),
+                "two-pass predict (RANSAC)": lambda: two_pass(x8),
+            }
+            reps = 20 if b == 1 else 5
+            times = {name: time_ms(fn, reps) for name, fn in parts.items()}
+        log(f"[keypoints:time] batch {b}: " + ", ".join(
+            f"{name} {ms:.3f} ms" for name, ms in times.items()) + " (CUDA events)")
+        for name in ("EPnP decode", "RANSAC decode"):
+            with torch.inference_mode():
+                n_k, syncs = _kernels_and_syncs(torch, parts[name])
+            log(f"[keypoints:decode] {name} at batch {b}: "
+                f"{n_k if n_k is not None else 'not measured'} CUDA kernels a call "
+                f"(torch.profiler); {sum(syncs.values())} host synchronizations a call "
+                f"(torch.cuda.set_sync_debug_mode('warn')), by line: {syncs}")
+    for window in KP_WINDOWS:
+        server = PoseServer(two_pass, img_shape=(240, 384, 3), max_batch=window, device=dev)
+        server.warmup()
+        _timed_requests(np, server, frames[:window].cpu().numpy(),
+                        f"keypoints:serve crop-refine window {window}")
+    if failed:
+        raise AssertionError("keypoints gates failed: " + "; ".join(failed))
 
 
 def phase_bench_construction(torch, np, dev):
@@ -1852,7 +2092,14 @@ def main() -> int:
         carry_launches = phase_carry(torch, np, dev, frames, exp_dir, graph)
     finally:
         shutil.rmtree(exp_dir, ignore_errors=True)
-    accuracy_launches = phase_accuracy(torch, np, dev)
+    split_root = os.path.join(REPO, "build", f"chip_smoke_dspeed_{os.getpid()}")
+    try:
+        still = write_test_split(split_root)
+        accuracy_launches, batches = phase_accuracy(torch, np, dev, still)
+        phase_keypoints(torch, np, dev, still, batches)
+        del batches
+    finally:
+        shutil.rmtree(split_root, ignore_errors=True)
     phase_bench_construction(torch, np, dev)
     layer_launches, fused_launches = layer[0], fused[0]
     # K1 and K2 are on three paths: their rows keep the layer executor's

@@ -8,12 +8,16 @@ its CSVs into the experiment directory.
 
 Usage:
     python -m spef_tpu_torch.apps.eval --experiment experiments/train_synth/exp_dspeed_synth \\
-        [--data /path/to/dspeed/still] [--batch-size 32] [--device cuda]
+        [--data /path/to/dspeed/still] [--batch-size 32] [--device cuda] \\
+        [--ransac] [--border-gate 0.02] [--crop-refine FINE_EXP]
 
 It runs on the card; ``--device cpu`` runs it on the CPU.
-``--cache-dataset`` reads the splits through the decoded-split cache.  The
-keypoint decodes (``--ransac``, ``--border-gate``, ``--crop-refine``) come
-with the keypoints family (ROADMAP §A, item 8).
+``--cache-dataset`` reads the splits through the decoded-split cache.  A
+keypoints-mode experiment decodes by EPnP, by RANSAC with ``--ransac``,
+with the border gate of ``--border-gate``; ``--crop-refine FINE_EXP``
+evaluates the two-pass engine (this experiment the coarse pass, FINE_EXP
+the crop-trained fine pass).  The scores go to ``eval_score_error`` with
+``_ransac``, ``_gated`` and ``_croprefine`` added to the name by those flags.
 """
 
 from __future__ import annotations
@@ -38,11 +42,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="serve the splits from the decoded-split cache (a memmapped "
                              "sidecar file beside the images, written on the first run)")
     parser.add_argument("--ransac", action="store_true",
-                        help="keypoints mode: not ported yet (ROADMAP §A, item 8)")
+                        help="keypoints mode: decode by the batched RANSAC PnP solver "
+                             "instead of plain EPnP")
     parser.add_argument("--border-gate", type=float, default=None,
-                        help="keypoints mode: not ported yet (ROADMAP §A, item 8)")
+                        help="keypoints mode: zero-weight predictions within this normalized "
+                             "margin of the frame border in the PnP solve")
     parser.add_argument("--crop-refine", default=None, metavar="FINE_EXP",
-                        help="keypoints mode: not ported yet (ROADMAP §A, item 8)")
+                        help="keypoints mode: evaluate the two-pass crop-refine engine, this "
+                             "experiment the coarse pass and FINE_EXP the crop-trained fine pass")
     parser.add_argument("--device", default="cuda")
     return parser.parse_args(argv)
 
@@ -50,9 +57,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[List[str]] = None):
     """Evaluate; returns ``(rec_score, rec_error)`` as ``save_score_error`` writes them."""
     args = parse_args(argv)
-    if args.ransac or args.border_gate is not None or args.crop_refine:
-        raise NotImplementedError("--ransac, --border-gate and --crop-refine: the keypoints "
-                                  "family is not ported yet (ROADMAP §A, item 8)")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to evaluate on the CPU")
 
@@ -60,7 +64,7 @@ def main(argv: Optional[List[str]] = None):
     from spef_tpu_torch.config.train_config import load_config
     from spef_tpu_torch.data.camera import load_camera
     from spef_tpu_torch.data.dataset import load_dataset
-    from spef_tpu_torch.engine import SPETorch
+    from spef_tpu_torch.engine import SPECropRefine, SPETorch, load_experiment_model
     from spef_tpu_torch.models.wrapper import import_model
     from spef_tpu_torch.quant.bitwidth import experiment_model_names
     from spef_tpu_torch.train.trainer import evaluation
@@ -69,7 +73,9 @@ def main(argv: Optional[List[str]] = None):
     set_seed(args.seed)
     cfg = load_config(os.path.join(args.experiment, "config.yaml"))
     data_path = args.data or cfg.DATA.PATH
-    spe_utils = SPEUtils.from_config(cfg, load_camera(data_path), device=args.device)
+    spe_utils = SPEUtils.from_config(cfg, load_camera(data_path), device=args.device,
+                                     keypoints_ransac=args.ransac,
+                                     keypoints_border_gate=args.border_gate)
     data, split = load_dataset(data_path, args.batch_size, tuple(cfg.DATA.IMG_SIZE),
                                cache=args.cache_dataset, device=args.device)
 
@@ -88,9 +94,17 @@ def main(argv: Optional[List[str]] = None):
         n_ori_bins=spe_utils.orientation.n_bins,
         pos_mode=cfg.MODEL.HEAD.POS,
         n_pos_bins=spe_utils.position.n_bins,
+        img_size=tuple(cfg.DATA.IMG_SIZE),
         device=args.device,
     )
-    engine = SPETorch(model, spe_utils, device=args.device)
+    if args.crop_refine:
+        # Crops at the fine model's trained resolution.
+        fine_cfg = load_config(os.path.join(args.crop_refine, "config.yaml"))
+        engine = SPECropRefine(model, load_experiment_model(args.crop_refine, args.device),
+                               spe_utils, crop_hw=tuple(fine_cfg.DATA.IMG_SIZE),
+                               device=args.device)
+    else:
+        engine = SPETorch(model, spe_utils, device=args.device)
     rec_score, rec_error = evaluation(engine, data, spe_utils, split["eval"])
 
     for phase in split["eval"]:
@@ -99,7 +113,13 @@ def main(argv: Optional[List[str]] = None):
             f"ori_err={rec_error[phase]['ori'][0]:.2f}deg (+/-{rec_error[phase]['ori_std'][0]:.2f}) "
             f"pos_err={rec_error[phase]['pos'][0]:.3f}m (+/-{rec_error[phase]['pos_std'][0]:.3f})"
         )
-    save_score_error(args.experiment, rec_score, rec_error, name="eval_score_error")
+    # The RANSAC / gated / two-pass decodes get sidecars of their own.
+    name = "eval_score_error_ransac" if args.ransac else "eval_score_error"
+    if args.border_gate is not None:
+        name += "_gated"
+    if args.crop_refine:
+        name += "_croprefine"
+    save_score_error(args.experiment, rec_score, rec_error, name=name)
     return rec_score, rec_error
 
 

@@ -23,8 +23,17 @@ The int8 executors of ``--int8-graph``:
     convolutions (``quant.int8_model.build_weight_only_forward``), the
     engine's ``weight-only`` variant; ``--int8-backend`` does not apply.
 
-``--frames-dir``, the native frame loader, crop-refine and ``--artifact``
-come in later slices (ROADMAP §A: data, keypoints family, deploy and serve).
+A keypoints-mode experiment decodes by EPnP inside the served predict, by
+RANSAC with ``--ransac``, with the border gate of ``--border-gate``;
+``--crop-refine FINE_EXP`` serves the two-pass pipeline (``codec/crop.py``:
+this experiment the coarse pass, FINE_EXP the crop-trained fine pass, crops
+at the fine model's input size) with the decode inside the served predict.
+The int8 graph's schema is MobileNetV2 + URSONet only, so ``--crop-refine``
+takes no ``--int8-graph``: the engine's ``crop-refine-w8`` variant is the
+two-pass pipeline's quantized form.
+
+``--frames-dir``, the native frame loader and ``--artifact`` come in later
+slices (ROADMAP §A: data, deploy and serve).
 """
 
 from __future__ import annotations
@@ -53,6 +62,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--int8-backend", default="cuda", choices=["cuda", "plain"])
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--selftest-frames", type=int, default=2048)
+    parser.add_argument("--ransac", action="store_true",
+                        help="keypoints mode: RANSAC PnP decode instead of plain EPnP")
+    parser.add_argument("--border-gate", type=float, default=None,
+                        help="keypoints mode: zero-weight border-saturated predictions in the "
+                             "PnP decode")
+    parser.add_argument("--crop-refine", default=None, metavar="FINE_EXP",
+                        help="keypoints mode: serve the two-pass crop-refine pipeline, this "
+                             "experiment the coarse pass and FINE_EXP the crop-trained fine pass")
     parser.add_argument("--device", default="cuda")
     return parser.parse_args(argv)
 
@@ -62,15 +79,22 @@ def build_server(args: argparse.Namespace):
     from spef_tpu_torch.codec.facade import SPEUtils
     from spef_tpu_torch.config.train_config import load_config
     from spef_tpu_torch.data.camera import SPEED_CAMERA, load_camera
-    from spef_tpu_torch.engine import build_predict_fn
+    from spef_tpu_torch.engine import (build_crop_refine_fn, build_predict_fn,
+                                       load_experiment_model)
     from spef_tpu_torch.models.wrapper import import_model
     from spef_tpu_torch.quant.bitwidth import experiment_model_names
     from spef_tpu_torch.serving import PoseServer
 
     cfg = load_config(os.path.join(args.experiment, "config.yaml"))
     camera = load_camera(cfg.DATA.PATH) if os.path.exists(cfg.DATA.PATH) else SPEED_CAMERA
-    spe_utils = SPEUtils.from_config(cfg, camera, device=args.device)
+    spe_utils = SPEUtils.from_config(cfg, camera, device=args.device,
+                                     keypoints_ransac=args.ransac,
+                                     keypoints_border_gate=args.border_gate)
     img_size = tuple(cfg.DATA.IMG_SIZE)
+    if args.crop_refine and args.int8_graph:
+        raise SystemExit("--crop-refine takes no --int8-graph: the int8 graph's schema is "
+                         "MobileNetV2 + URSONet only (use the engine's crop-refine-w8 variant "
+                         "for weight-only int8 of both passes)")
 
     if args.int8_graph:
         from spef_tpu_torch.quant.int8_carry import build_int8_carry_forward
@@ -106,12 +130,20 @@ def build_server(args: argparse.Namespace):
             n_ori_bins=spe_utils.orientation.n_bins,
             pos_mode=cfg.MODEL.HEAD.POS,
             n_pos_bins=spe_utils.position.n_bins,
+            img_size=img_size,
             device=args.device,
         )
         if bit_width is not None:
             print(f"Serving the QAT model ({backbone_name} + {head_name})")
         forward_fn = None
-    predict = build_predict_fn(model, spe_utils, forward_fn=forward_fn)
+    if args.crop_refine:
+        fine_hw = tuple(load_config(os.path.join(args.crop_refine, "config.yaml")).DATA.IMG_SIZE)
+        predict = build_crop_refine_fn(model, load_experiment_model(args.crop_refine,
+                                                                    args.device),
+                                       spe_utils, crop_hw=fine_hw)
+        print(f"Serving the two-pass crop-refine pipeline (fine: {args.crop_refine})")
+    else:
+        predict = build_predict_fn(model, spe_utils, forward_fn=forward_fn)
     server = PoseServer(predict, img_shape=(*img_size, 3), max_batch=args.batch,
                         device=args.device)
     return server, img_size

@@ -92,6 +92,7 @@ def run_experiment(name: str, cfg, bit_width_path, out_root: str, seed: int = 10
         n_ori_bins=spe_utils.orientation.n_bins,
         pos_mode=cfg.MODEL.HEAD.POS,
         n_pos_bins=spe_utils.position.n_bins,
+        img_size=tuple(cfg.DATA.IMG_SIZE),
         seed=seed,
         device=device,
     )

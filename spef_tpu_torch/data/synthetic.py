@@ -30,31 +30,13 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from spef_tpu_torch.codec.keypoints import TANGO_3D_KEYPOINTS
 from spef_tpu_torch.data.camera import DSPEED_CAMERA, Camera
 from spef_tpu_torch.data.png import write_png
 from spef_tpu_torch.data.raster import Canvas
 
 __all__ = ["TANGO_3D_KEYPOINTS", "generate_positions", "render_frame",
            "create_synthetic_dataset", "create_crop_dataset", "create_synthetic_video"]
-
-# The 11 Tango keypoints [m], rows = points, cols = (x, y, z): the SPNv2
-# tangoPoints asset (``spef_tpu.codec.keypoints.TANGO_3D_KEYPOINTS``).
-TANGO_3D_KEYPOINTS = np.array(
-    [
-        [-0.3700, -0.3850, 0.3215],
-        [-0.3700, 0.3850, 0.3215],
-        [0.3700, 0.3850, 0.3215],
-        [0.3700, -0.3850, 0.3215],
-        [-0.3700, -0.2640, 0.0000],
-        [-0.3700, 0.3040, 0.0000],
-        [0.3700, 0.3040, 0.0000],
-        [0.3700, -0.2640, 0.0000],
-        [-0.5427, 0.4877, 0.2535],
-        [0.5427, 0.4877, 0.2591],
-        [0.3050, -0.5790, 0.2515],
-    ],
-    dtype=np.float32,
-)
 
 # Wireframe edges over the 11 keypoints (top face, bottom face, pillars,
 # antenna tips to the nearest top corners).

@@ -29,7 +29,8 @@ import torch
 from torch import nn
 
 from spef_tpu_torch.models.flax_msgpack import read_flax_msgpack, write_flax_msgpack
-from spef_tpu_torch.models.heads import URSONetHead
+from spef_tpu_torch.models.heads import (KeypointHeatmapHead, KeypointRegressionHead,
+                                         URSONetHead)
 from spef_tpu_torch.models.mobilenet_v2 import MobileNetV2, SmallBackbone, SmallMobile
 
 __all__ = ["ModelWrapper", "import_model", "save_model", "load_flax_variables",
@@ -44,7 +45,8 @@ _BACKBONE_ALIASES = {
     "small_brevitas": "small_q",
     "small_mobile_brevitas": "small_mobile_q",
 }
-_HEAD_ALIASES = {"ursonet_pytorch": "ursonet", "ursonet_brevitas": "ursonet_q"}
+_HEAD_ALIASES = {"ursonet_pytorch": "ursonet", "ursonet_brevitas": "ursonet_q",
+                 "keypoints_regression_pytorch": "keypoints_regression"}
 
 # The float backbones, by name.
 _BACKBONES = {"mobilenet_v2": MobileNetV2, "small_mobile": SmallMobile, "small": SmallBackbone}
@@ -56,7 +58,8 @@ def resolve_names(backbone_name: str, head_name: str) -> Tuple[str, str]:
 
 
 class ModelWrapper(nn.Module):
-    """features + head: NHWC float images -> (ori, pos) raw outputs.
+    """features + head: NHWC float images -> (ori, pos) raw outputs, or the
+    keypoint logits (B, 24) of a keypoint head.
     ``bit_width`` is the QAT models' recipe (None for a float model)."""
 
     def __init__(self, backbone: nn.Module, head: nn.Module, bit_width: Optional[dict] = None):
@@ -65,7 +68,7 @@ class ModelWrapper(nn.Module):
         self.head = head
         self.bit_width = bit_width
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor):
         return self.head(self.backbone(x))
 
 
@@ -153,6 +156,8 @@ def import_model(
     n_ori_bins: Optional[int] = None,
     pos_mode: str = "regression",
     n_pos_bins: Optional[int] = None,
+    n_keypoint_outputs: int = 24,
+    img_size: Tuple[int, int] = (240, 384),
     seed: int = 1001,
     device: Union[str, torch.device] = "cuda",
     compute_dtype: torch.dtype = torch.bfloat16,
@@ -167,17 +172,13 @@ def import_model(
     selected by the ``_q`` suffix as in the JAX factory.
     ``pretrained_path`` warm-starts the backbone from a torchvision-format
     MobileNetV2 file on disk (``models.pretrained``), before
-    ``params_path`` is loaded.  The keypoint heads come with the keypoints
-    family (ROADMAP §A).
+    ``params_path`` is loaded.  ``ori_mode="keypoints"`` takes a keypoint
+    head: ``keypoints_heatmap``, or the regression head for any other name
+    (``keypoints_regression``), with ``n_keypoint_outputs`` outputs; the
+    regression head's input size is the feature map's at ``img_size``.
     """
     backbone_name, head_name = resolve_names(backbone_name, head_name)
-    if ori_mode == "keypoints" or head_name not in ("ursonet", "ursonet_q"):
-        raise NotImplementedError(
-            f"{head_name} ({ori_mode}) is not ported yet; the keypoint heads come with the "
-            "keypoints family (ROADMAP §A)")
     gen = torch.Generator().manual_seed(seed)
-    n_ori = 4 if ori_mode == "regression" else int(n_ori_bins)
-    n_pos = 3 if pos_mode == "regression" else int(n_pos_bins)
     if backbone_name.endswith("_q"):
         from spef_tpu_torch.quant.qmodels import build_quant_backbone
 
@@ -188,12 +189,25 @@ def import_model(
                                              compute_dtype=compute_dtype, generator=gen)
     else:
         raise ValueError(f"Backbone {backbone_name} does not exist")
-    if head_name == "ursonet_q":
+    if ori_mode == "keypoints":
+        if head_name == "keypoints_heatmap":
+            head = KeypointHeatmapHead(backbone.out_features, n_outputs=n_keypoint_outputs,
+                                       compute_dtype=compute_dtype, generator=gen)
+        else:
+            with torch.no_grad():  # the flattened feature map's size at img_size
+                feat = backbone(torch.zeros((1, *img_size, 3)))
+            head = KeypointRegressionHead(feat[0].numel(), n_outputs=n_keypoint_outputs,
+                                          generator=gen)
+    elif head_name == "ursonet_q":
         from spef_tpu_torch.quant.qmodels import build_quant_head
 
+        n_ori = 4 if ori_mode == "regression" else int(n_ori_bins)
+        n_pos = 3 if pos_mode == "regression" else int(n_pos_bins)
         head = build_quant_head(head_name, backbone.out_features, n_ori, n_pos, bit_width,
                                 quantization, gen)
     else:
+        n_ori = 4 if ori_mode == "regression" else int(n_ori_bins)
+        n_pos = 3 if pos_mode == "regression" else int(n_pos_bins)
         head = URSONetHead(backbone.out_features, n_ori_outputs=n_ori, n_pos_outputs=n_pos,
                            generator=gen)
     model = ModelWrapper(backbone, head, bit_width)

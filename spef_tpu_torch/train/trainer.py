@@ -125,8 +125,28 @@ class Trainer:
         self._255 = torch.tensor(255.0, device=self.device)
 
     # ------------------------------------------------------------------
-    def _encode_targets(self, ori: torch.Tensor, pos: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return self.spe_utils.encode_targets(ori, pos)
+    def _encode_targets(self, ori: torch.Tensor, pos: torch.Tensor,
+                        crop: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The pose, its soft-class PDFs and, in the keypoints mode, the
+        keypoint label vector, in the crop-local coordinates of the batch's
+        ``crop`` windows where it has them (crop-refine datasets)."""
+        utils = self.spe_utils
+        t = {"ori": ori, "pos": pos}
+        if utils.ori_mode == "classification":
+            t["ori_soft"] = utils.orientation.encode(ori)
+        if utils.pos_mode == "classification":
+            t["pos_soft"] = utils.position.encode(pos)
+        if "keypoints" in (utils.ori_mode, utils.pos_mode):
+            kp = utils.keypoints.create_keypoints2d(ori, pos)
+            if crop is not None:
+                from spef_tpu_torch.codec.crop import map_keypoints_to_crop
+
+                kp = map_keypoints_to_crop(kp, crop)
+            t["keypoints"] = kp
+        return t
+
+    def _crop(self, batch) -> Optional[torch.Tensor]:
+        return self._put(batch["crop"]) if "crop" in batch else None
 
     def _put(self, x) -> torch.Tensor:
         x = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
@@ -143,11 +163,18 @@ class Trainer:
     def _eval_metrics(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
         state.model.eval()
         ori, pos, mask = (self._put(batch[k]) for k in ("ori", "pos", "mask"))
-        targets = self._encode_targets(ori, pos)
+        crop = self._crop(batch)
+        targets = self._encode_targets(ori, pos, crop)
         with torch.no_grad():
             pred = state.model(self._images(batch["images"]))
             pose = _apply_last_activation(self.spe_utils, pred)
             metrics = {"loss": self.spe_loss.compute_loss(pose, targets)}
+            if crop is not None and "keypoints" in pose:
+                # The loss compares crop-local coordinates; the pose metrics
+                # decode the keypoints mapped back to the full frame.
+                from spef_tpu_torch.codec.crop import map_keypoints_from_crop
+
+                pose = dict(pose, keypoints=map_keypoints_from_crop(pose["keypoints"], crop))
             metrics.update(_masked_metrics(self.spe_utils, pose, targets, mask))
         return metrics
 
@@ -215,13 +242,14 @@ class Trainer:
                 def _flush():
                     if not pending:
                         return
-                    values = torch.stack([torch.stack([m[k].float() for k in _METRIC_KEYS])
+                    keys = [k for k in _METRIC_KEYS if k in pending[0][2]]
+                    values = torch.stack([torch.stack([m[k].float() for k in keys])
                                           for _, _, m in pending]).cpu().numpy()
                     for (b_idx, n_v, _), row in zip(pending, values):
                         if not np.isfinite(row[0]):
                             raise ValueError(f"Non-finite loss at epoch {epoch} ({phase}), "
                                              f"batch {b_idx}")
-                        running.update(dict(zip(_METRIC_KEYS, row)), n_v)
+                        running.update(dict(zip(keys, row)), n_v)
                     pending.clear()
 
                 if phase == "train" and self.device.type == "cuda":
@@ -245,13 +273,15 @@ class Trainer:
                                                              self.rot_augment,
                                                              self.other_augment)
                         t1 = clock.mark()
-                        targets = self._encode_targets(ori, pos)
+                        targets = self._encode_targets(ori, pos, self._crop(batch))
                         loss, pose = train_update(state, images, targets, self.spe_utils,
                                                   self.spe_loss, gen, self.clip_batchnorm)
                         marks.append((t0, t1, clock.mark()))
                         metrics = {"loss": loss}
-                        with torch.no_grad():
-                            metrics.update(_masked_metrics(self.spe_utils, pose, targets, mask))
+                        if not self.spe_utils.keypoints_mode:  # as JAX's train step
+                            with torch.no_grad():
+                                metrics.update(_masked_metrics(self.spe_utils, pose, targets,
+                                                               mask))
                     else:
                         metrics = self._eval_metrics(state, batch)
                     pending.append((b_idx, n_valid, metrics))

@@ -186,8 +186,17 @@ def test_softclass_histograms_and_decode_match_jax():
 
 
 def test_facade_keypoints_mode_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SPEUtils.create(SPEED_CAMERA, ori_mode="keypoints", pos_mode="keypoints", device="cpu")
+    # The keypoints mode is ported (ROADMAP §A, item 8): the facade builds
+    # its keypoint helper and applies the sigmoid; it refuses the mode only
+    # without keypoint support.
+    utils = SPEUtils.create(SPEED_CAMERA, ori_mode="keypoints", pos_mode="keypoints",
+                            device="cpu")
+    assert utils.keypoints is not None and utils.keypoints_mode
+    x = torch.linspace(-3, 3, 24)[None]
+    torch.testing.assert_close(utils.last_activ({"keypoints": x})["keypoints"], torch.sigmoid(x))
+    with pytest.raises(ValueError, match="keypoint support"):
+        SPEUtils.create(SPEED_CAMERA, ori_mode="keypoints", pos_mode="keypoints",
+                        use_keypoints=False, device="cpu")
 
 
 @pytest.mark.parametrize("rel", [

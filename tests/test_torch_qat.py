@@ -211,9 +211,12 @@ def test_import_model_takes_the_q_aliases_and_a_float_head():
     assert m.bit_width is None and m.backbone.bit_width["shared_act"] == 4
     m = import_model("small_mobile_q", "ursonet", ori_mode="regression", device="cpu")
     assert type(m.head).__name__ == "URSONetHead" and m.head.ori_fc.in_features == 64
-    with pytest.raises(NotImplementedError):
-        import_model("mobilenet_v2", "keypoints_regression", ori_mode="keypoints",
-                     device="cpu")
+    # The keypoint heads are ported (ROADMAP §A, item 8): a _q backbone takes
+    # one too, the regression head sized by the feature map at img_size.
+    m = import_model("small_mobile_q", "keypoints_regression", ori_mode="keypoints",
+                     pos_mode="keypoints", img_size=(48, 64), device="cpu")
+    assert type(m.head).__name__ == "KeypointRegressionHead"
+    assert m(torch.zeros(1, 48, 64, 3)).shape == (1, 24)
 
 
 # ---------------------------------------------------------------------------
