@@ -133,7 +133,29 @@ each printed on its own lines; any failure exits nonzero:
      synchronizations (``torch.cuda.set_sync_debug_mode("warn")``), and
      request p50 through ``PoseServer`` for the two-pass pipeline at serve
      windows 1 and 64;
- 13. the last line: ``{"ok": true, "device": {...}}``.
+ 13. temporal (video) evaluation: the 11 D-SPEED video scenarios, their
+     first 300 frames at 240x384 (3,300 frames), written into ``build/`` by
+     ``python -m spef_tpu_torch.apps.create_dspeed --skip-still --render``
+     in worker processes and removed at the end, each scenario's frames
+     hashing to what ``assets/temporal_esa.json`` (JAX on the CPU) was
+     measured on; (a) the float flagship through ``python -m
+     spef_tpu_torch.apps.temporal_eval``, serial and ``--batch-sequences``:
+     each scenario's still and video ESA within 0.005 of JAX's and their
+     means within 0.002, the two modes within 1e-4 relative + 1e-5 of each
+     other, ``ACCURACY.md``'s TPU-era row printed beside each; (b) the
+     committed int8 graph on the ``fused`` executor through
+     ``multi_sequence_inference`` (counters 0 before, 52 forwards' launches
+     after), each video ESA within 0.01 of JAX's ``int8_carry``; (c) one
+     scenario streamed frame by frame through ``Inference.predict(frame,
+     "Adaptative")`` on the ``carry`` executor (34 K1 and 17 K2 launches a
+     frame), its video ESA within 0.003 of JAX's ``int8_carry``, its
+     filtered PDFs within 1e-5 of ``scan_filter`` over the PDFs it was fed;
+     (d) the app's wall time and frames/s in both modes, streaming p50 / p95
+     a frame for the float flagship and the carry (host clock), forward
+     chunks, ``scan_filter`` a sequence with its kernels a step
+     (``torch.profiler``) and host syncs, decode and continuity (CUDA
+     events); the ``kernels`` line's ``launches_temporal_path``;
+ 14. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, where ``torch.cuda.is_available()`` is
 false or the package is missing.
@@ -274,6 +296,29 @@ def check_mbconv(a, args, kw):
     if refused or err > step or mis > TIE_SHARE * a.numel():
         raise AssertionError(f"fused_mbconv: {mis} mismatches of {a.numel()} outputs, {refused} "
                              f"of them not within {step} step(s) at a tie (max |d| {err})")
+    return mis, err, step
+
+
+def check_call(name, a, args, kw):
+    """One kernel call's output ``a`` against its plain version on the same
+    inputs: K2 and K3 exactly, K1 and K4 by ``check_mm`` / ``check_mbconv``,
+    with at most one int8 step at a tie (no residual ratio of the flagship's
+    graphs is above 1).  Returns (mismatches, max |a - plain|, steps
+    admitted at a tie); raises on anything else."""
+    from spef_tpu_torch.ops import fused_block, int8_ops
+
+    if name == "fused_mbconv":
+        mis, err, step = check_mbconv(a, args, kw)
+    elif name == "int8_matmul_requant":
+        mis, err, step = check_mm(a, args, kw)
+    else:
+        ops = fused_block if name == "fused_stem" else int8_ops
+        (mis, err), step = diff(a, getattr(ops, name + "_plain")(*args, **kw)), 0
+        if mis:
+            raise AssertionError(f"{name}: {mis} kernel/plain mismatches")
+    if step > 1 or err > 1:
+        raise AssertionError(f"{name}: max |kernel - plain| {err} with {step} step(s) "
+                             f"admitted; the flagship allows one")
     return mis, err, step
 
 
@@ -897,13 +942,7 @@ def phase_kernels(torch, dev, frames, launches, built_graph):
         kernel, plain = getattr(module, name), getattr(module, name + "_plain")
         a = kernel(*args, **kw)
         torch.cuda.synchronize()
-        step = 0
-        if name == "fused_mbconv":
-            mis, err, step = check_mbconv(a, args, kw)
-        elif name == "int8_matmul_requant":
-            mis, err, step = check_mm(a, args, kw)  # raises on an integer-input mismatch
-        else:
-            mis, err = diff(a, plain(*args, **kw))
+        mis, err, step = check_call(name, a, args, kw)
         numel = a.numel()
         del a
         k_ms = time_ms(lambda: kernel(*args, **kw), reps=10)
@@ -953,12 +992,6 @@ def phase_kernels(torch, dev, frames, launches, built_graph):
         lib_label = table[name][3]
         tot, mismatches, max_err, max_step = measure_all(name, recs, paths[name])
         tied = name in ("fused_mbconv", "int8_matmul_requant")
-        if mismatches and not tied:
-            raise AssertionError(f"{name}: {mismatches} kernel/plain mismatches")
-        if tied and (max_step > 1 or max_err > 1):
-            # No residual ratio of this graph is above 1: one int8 step at a tie, no more.
-            raise AssertionError(f"{name}: max |kernel - plain| {max_err} with "
-                                 f"{max_step} step(s) admitted; the flagship allows one")
         row = {
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": launches[name], "max_abs_err": max_err,
@@ -977,11 +1010,7 @@ def phase_kernels(torch, dev, frames, launches, built_graph):
         if name in carry_calls:
             # The same kernel on the int8-carry path: division, shifted
             # grids and the -128 halo.
-            c_tot, c_mis, c_err, c_step = measure_all(name, carry_calls[name], "carry")
-            if c_mis and not tied:
-                raise AssertionError(f"{name}: {c_mis} kernel/plain mismatches on carry")
-            if c_step > 1 or c_err > 1:
-                raise AssertionError(f"{name}: max |kernel - plain| {c_err} on carry")
+            c_tot, c_mis, c_err, _ = measure_all(name, carry_calls[name], "carry")
             row["carry_path"] = {
                 "calls_per_forward": len(carry_calls[name]), "ms": c_tot["ms"],
                 "plain_ms": c_tot["plain_ms"], "library_ms": c_tot["library_ms"],
@@ -992,7 +1021,7 @@ def phase_kernels(torch, dev, frames, launches, built_graph):
 
     # K1's head-conv call of the fused path (int8 in, float32 out), apart.
     (args, kw), = head_conv
-    # Integer input: check_mm inside measure raises on any mismatch.
+    # Integer input: check_call inside measure raises on any mismatch.
     _, err, k_ms, p_ms, l_ms, b_ms, by, _ = measure("int8_matmul_requant", "fused-path", args, kw)
     for row in rows:
         if row["name"] == "int8_matmul_requant":
@@ -1529,9 +1558,9 @@ def _train_cli(torch, np, dev, still, root):
 def phase_training(torch, np, dev, root):
     """Phase 10: the flagship trained on the card at full width.  Returns
     the dataset and the config the deployment build uses."""
-    from spef_tpu_torch.data.synthetic import create_synthetic_dataset
+    from spef_tpu_torch.data.synthetic import create_synthetic_dataset, render_workers
 
-    workers = max(1, min(8, (os.cpu_count() or 1) - 1))
+    workers = render_workers()
     t0 = time.perf_counter()
     still = create_synthetic_dataset(root, img_size=(240, 384), seed=1001, workers=workers,
                                      **TRAIN_SET)
@@ -1665,9 +1694,9 @@ def _timed(label, fn, tag="accuracy"):
 def write_test_split(root):
     """The flagship's 2,000-frame test split, written by the port's writer
     under ``root`` (phases 8 and 12 read it); returns its still root."""
-    from spef_tpu_torch.data.synthetic import _create_test_split
+    from spef_tpu_torch.data.synthetic import _create_test_split, render_workers
 
-    workers = max(1, min(8, (os.cpu_count() or 1) - 1))
+    workers = render_workers()
     return _timed(
         f"test split written ({SPLIT['n_test']} frames at 240x384, seed 1001, the "
         f"{SPLIT['n_train']} + {SPLIT['n_valid']} earlier frames' draws replayed; "
@@ -2025,6 +2054,322 @@ def phase_keypoints(torch, np, dev, still, batches):
         raise AssertionError("keypoints gates failed: " + "; ".join(failed))
 
 
+# ---------------------------------------------------------------------------
+# Temporal (video) evaluation
+# ---------------------------------------------------------------------------
+
+TEMPORAL_RECORD = os.path.join(REPO, "spef_tpu_torch", "assets", "temporal_esa.json")
+TEMPORAL_N_FRAMES = 299  # create_dspeed --n-frames: 300 frames a scenario
+TEMPORAL_HW = (240, 384)
+TEMPORAL_ESA_TOL = 0.005  # each scenario's float still / video ESA against JAX's
+TEMPORAL_MEAN_TOL = 0.002  # the mean over the 11, each mode
+MODES_REL, MODES_ABS = 1e-4, 1e-5  # serial against --batch-sequences (tests/test_temporal_cli.py)
+STREAM_SCENARIO = "TITR"
+STREAM_PDF_TOL = 1e-5  # the streaming filter against scan_filter on what it was fed
+
+
+def write_scenarios(root):
+    """The 11 D-SPEED video scenarios, 300 frames each at 240x384, written by
+    ``python -m spef_tpu_torch.apps.create_dspeed`` under ``root``; each
+    scenario's frames must hash to what the JAX reference was measured on.
+    Returns the video root."""
+    from spef_tpu_torch.apps import create_dspeed
+    from spef_tpu_torch.data.synthetic import render_workers
+
+    with open(TEMPORAL_RECORD) as f:
+        record = json.load(f)
+    video = os.path.join(root, "video")
+    _timed(f"11 scenarios written (python -m spef_tpu_torch.apps.create_dspeed --skip-still "
+           f"--render, {TEMPORAL_HW[0]}x{TEMPORAL_HW[1]}, --n-frames {TEMPORAL_N_FRAMES}: "
+           f"{11 * (TEMPORAL_N_FRAMES + 1)} frames, {render_workers()} render processes)",
+           lambda: create_dspeed.main([
+               "--out", video, "--skip-still", "--render", "--img-height", str(TEMPORAL_HW[0]),
+               "--img-width", str(TEMPORAL_HW[1]), "--n-frames", str(TEMPORAL_N_FRAMES)]),
+           "temporal")
+    for seq, row in record["scenarios"].items():
+        digest = create_dspeed.frames_sha256(os.path.join(video, seq))
+        if digest != row["frames_sha256"]:
+            raise AssertionError(f"{seq}: the frames written here are not those JAX's "
+                                 f"reference was measured on (sha256 {digest})")
+    log(f"[temporal] the 11 scenarios' frames hash to the reference's sha256 values")
+    return video
+
+
+def _temporal_cli(root, exp, video, mode, extra):
+    """``python -m spef_tpu_torch.apps.temporal_eval`` in one mode; returns
+    (its temporal_metrics.json, wall seconds)."""
+    from spef_tpu_torch.apps import temporal_eval
+
+    out = os.path.join(root, f"temporal_{mode}")
+    _reset_counters()
+    t0 = time.perf_counter()
+    temporal_eval.main(["--experiment", exp, "--data", video, "--out", out, *extra])
+    wall = time.perf_counter() - t0
+    _read_counters(f"temporal:float {mode}", 0, {})  # no hand kernel on the float path
+    files = set(os.listdir(out))
+    assert {"temporal_metrics.json", "still_metrics_S.csv", "video_metrics_S.csv",
+            "distances_S.csv"} <= files, files
+    if mode == "serial":
+        assert "temporal_tables.json" in files, files
+    with open(os.path.join(out, "temporal_metrics.json")) as f:
+        return json.load(f), wall
+
+
+def _stream(torch, np, engine, utils, frames, label, card):
+    """``Inference.predict(frame, "Adaptative")`` frame after frame, after one
+    warm-up frame and a reset; returns (still soft outputs fed to the
+    filter, filtered soft outputs, video poses, per-frame host ms)."""
+    from spef_tpu_torch.temporal.inference import Inference
+
+    stream = Inference(engine, utils, dataset="dspeed_video")
+    stream.predict(frames[:1], "Adaptative")
+    stream.reset()
+    _reset_counters()
+    fed, filtered, poses, ms = {"ori": [], "pos": []}, {"ori": [], "pos": []}, [], []
+    for i in range(len(frames)):
+        t0 = time.perf_counter()
+        still, _, video = stream.predict(frames[i:i + 1], "Adaptative")
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for k in ("ori", "pos"):
+            fed[k].append(still[f"{k}_soft"])
+            filtered[k].append(video[f"{k}_soft"])
+        poses.append((video["ori"], video["pos"]))
+    log(f"[temporal:time] streaming Inference.predict(frame, 'Adaptative'), {label}, "
+        f"{len(frames)} frames of {STREAM_SCENARIO}: p50 {np.percentile(ms, 50):.3f} ms, p95 "
+        f"{np.percentile(ms, 95):.3f} ms a frame (host clock: copy, forward, decode, "
+        f"filter, re-decode, continuity) on {card}")
+    return fed, filtered, poses, ms
+
+
+def _hold_temporal_path(torch, label, module, names, build, frames, dev, failed):
+    """Every call of the kernels ``names`` (wrappers bound in ``module``) in
+    one forward of ``build(backend)`` on ``frames`` (uint8, a temporal
+    path's own batch) held by ``check_call``; then the forward's logits
+    against the plain backend's, within 0.3.  A disagreement goes into
+    ``failed``.  Returns {kernel: {calls, input, mismatches, max_abs_err}}."""
+    from spef_tpu_torch.ops import fused_block, int8_ops
+
+    calls = _recorded_calls(torch, module, names, lambda: build(backend="cuda"), frames, dev)
+    checks = {}
+    for name, recs in calls.items():
+        kernel = getattr(fused_block if name.startswith("fused") else int8_ops, name)
+        mis_sum, max_err, bad = 0, 0.0, 0
+        for i, (args, kw) in enumerate(recs):
+            try:
+                a = kernel(*args, **kw)
+                torch.cuda.synchronize()
+                mis, err, _ = check_call(name, a, args, kw)
+            except AssertionError as e:
+                failed.append(f"{label}: call {i}, input {tuple(args[0].shape)}: {e}")
+                bad += 1
+                continue
+            mis_sum, max_err = mis_sum + mis, max(max_err, err)
+        log(f"[temporal:kernels] {label}: {name}, {len(recs)} calls (first input "
+            f"{tuple(recs[0][0][0].shape)} {recs[0][0][0].dtype}) against the plain version: "
+            f"{bad} calls failed; in the others {mis_sum} mismatches, each at a tie the rule admits; max |kernel - plain| "
+            f"{max_err:g}")
+        checks[name] = {"calls": len(recs), "input": list(recs[0][0][0].shape),
+                        "mismatches": mis_sum, "max_abs_err": max_err}
+    x = torch.from_numpy(frames).to(dev)
+    got, want = build(backend="cuda")(x), build(backend="plain")(x)
+    d = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    log(f"[temporal:kernels] {label}: kernels vs plain backend on {len(frames)} frames, max "
+        f"|d logit| {d:.4g} (at most 0.3)")
+    if not d < 0.3:
+        failed.append(f"{label}: kernels {d} in logits from the plain backend")
+    return checks
+
+
+def phase_temporal(torch, np, dev, video, card):
+    """Temporal evaluation on the 11 scenarios of ``write_scenarios``: (a) the
+    float flagship through ``python -m spef_tpu_torch.apps.temporal_eval``,
+    serial and ``--batch-sequences``, each scenario's still and video ESA
+    within ``TEMPORAL_ESA_TOL`` of JAX's on the same frames and their means
+    within ``TEMPORAL_MEAN_TOL``, the two modes together; (b) the committed
+    int8 graph on the ``fused`` executor (K3, K4, K1) through
+    ``multi_sequence_inference``, each video ESA within ``EXECUTOR_ESA_TOL``
+    of JAX's ``int8_carry``; (c) the streaming ``Inference`` on the
+    ``carry`` executor (K1, K2) over one scenario, its video ESA within
+    ``CARRY_ESA_TOL`` of JAX's, its filtered PDFs those of ``scan_filter``
+    over what it was fed; (d) times.  The launch counters are set to 0
+    before each path and read after it.  The kernels of (b) and (c) are then
+    held against their plain versions at the batches those paths gave them
+    (a 64-frame chunk and the tail; one frame).  Every number is printed
+    before a failed gate raises.  Returns ({path: launches}, {path:
+    {kernel: its check}})."""
+    from spef_tpu_torch.apps.temporal_eval import _gather
+    from spef_tpu_torch.codec.facade import SPEUtils
+    from spef_tpu_torch.data.camera import load_camera
+    from spef_tpu_torch.data.dataset import load_dataset
+    from spef_tpu_torch.engine import SPETorch, load_experiment_model
+    from spef_tpu_torch.pose.score import score_batch
+    from spef_tpu_torch.quant import int8_carry, int8_fused
+    from spef_tpu_torch.quant.int8_carry import build_int8_carry_forward
+    from spef_tpu_torch.quant.int8_fused import build_fused_forward
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph
+    from spef_tpu_torch.temporal.inference import (multi_sequence_inference,
+                                                   quaternion_continuity_scan)
+    from spef_tpu_torch.temporal.pdf_filter import filter_defaults, scan_filter
+
+    with open(TEMPORAL_RECORD) as f:
+        record = json.load(f)
+    rows = record["scenarios"]
+    root = os.path.dirname(os.path.normpath(video))
+    failed = []
+
+    # (a) Float, through the CLI, as a user runs it.
+    exp = os.path.join(root, "exp_dspeed_synth")
+    os.makedirs(exp)
+    shutil.copy(os.path.join(FLAGSHIP, "config.yaml"), exp)
+    os.symlink(os.path.join(FLAGSHIP, "model"), os.path.join(exp, "model"))
+    got, walls = {}, {}
+    for mode, extra in (("serial", []), ("batched", ["--batch-sequences"])):
+        got[mode], walls[mode] = _temporal_cli(root, exp, video, mode, extra)
+        n = len(got[mode]) * (TEMPORAL_N_FRAMES + 1)
+        log(f"[temporal:time] float, python -m spef_tpu_torch.apps.temporal_eval"
+            f"{' --batch-sequences' if extra else ''}: {walls[mode]:.2f} s wall, "
+            f"{n / walls[mode]:.1f} frames/s over {n} frames (host clock: PNG load, forward, "
+            f"filter, decode, scores, workbooks) on {card}")
+    assert sorted(got["serial"]) == sorted(got["batched"]) == sorted(rows)
+    for seq in sorted(rows):
+        want, era = rows[seq]["float"], rows[seq]["accuracy_md_tpu"]
+        parts = []
+        for mode in ("still", "video"):
+            e = got["serial"][seq][mode]["esa_score"]
+            b = got["batched"][seq][mode]["esa_score"]
+            d = abs(e - want[mode]["esa"])
+            parts.append(f"{mode} {e:.6f} (JAX {want[mode]['esa']:.6f}, d {d:.6f}; batched "
+                         f"{b:.6f}, d {abs(b - e):.2e})")
+            if d > TEMPORAL_ESA_TOL:
+                failed.append(f"float {seq} {mode} ESA {e} is {d:.5f} from JAX's "
+                              f"{want[mode]['esa']} (at most {TEMPORAL_ESA_TOL})")
+            if abs(b - e) > MODES_ABS + MODES_REL * abs(e):
+                failed.append(f"float {seq} {mode}: --batch-sequences ESA {b} against the "
+                              f"serial {e} (at most {MODES_REL} relative + {MODES_ABS})")
+        log(f"[temporal:accuracy] float {seq}: " + "; ".join(parts) + f"; ACCURACY.md's TPU "
+            f"run over 1,500 frames {era['still']:.4f} -> {era['video']:.4f}, for information")
+    for mode in ("still", "video"):
+        mine = float(np.mean([got["serial"][s][mode]["esa_score"] for s in rows]))
+        theirs = float(np.mean([rows[s]["float"][mode]["esa"] for s in rows]))
+        log(f"[temporal:accuracy] float mean {mode} ESA over the 11: {mine:.6f} (JAX "
+            f"{theirs:.6f}, d {abs(mine - theirs):.6f}, at most {TEMPORAL_MEAN_TOL})")
+        if abs(mine - theirs) > TEMPORAL_MEAN_TOL:
+            failed.append(f"float mean {mode} ESA {mine} is {abs(mine - theirs):.5f} from "
+                          f"JAX's {theirs}")
+
+    # The frames and poses of every scenario, in order, on the host.
+    data, split = load_dataset(video, EVAL_BATCH, TEMPORAL_HW)
+    seqs = sorted(split["eval"])
+    gathered = {seq: _gather(data[seq]) for seq in seqs}
+    frames = np.stack([gathered[s][0] for s in seqs])
+    utils = SPEUtils.create(load_camera(video), ori_mode="classification",
+                            pos_mode="classification", device=dev)
+    graph = load_int8_graph(ASSET)
+
+    def esa(seq, ori, pos):
+        return float(score_batch(torch.as_tensor(gathered[seq][1], device=ori.device),
+                                 torch.as_tensor(gathered[seq][2], device=ori.device),
+                                 ori, pos)["esa_score"])
+
+    # (b) The fused executor (K3, K4, K1) on all 11 at once.
+    fused = build_fused_forward(graph, backend="cuda", device=dev)
+    _reset_counters()
+    res = _timed("fused executor: multi_sequence_inference over the 11 scenarios",
+                 lambda: multi_sequence_inference(utils, fused, frames, dataset="dspeed_video"),
+                 "temporal")
+    torch.cuda.synchronize()
+    chunks = -(-frames.shape[0] * frames.shape[1] // 64)  # frame_batch 64
+    launches = {"fused": _read_counters("temporal:fused", chunks, FUSED_LAUNCHES)}
+    for i, seq in enumerate(seqs):
+        still = esa(seq, res["ori_still"][i], res["pos_still"][i])
+        vid = esa(seq, res["ori_video"][i], res["pos_video"][i])
+        want = rows[seq]["int8_carry"]["video"]["esa"]
+        log(f"[temporal:accuracy] fused {seq}: still {still:.6f}, video {vid:.6f} (JAX "
+            f"int8_carry video {want:.6f}, d {abs(vid - want):.6f}, at most "
+            f"{EXECUTOR_ESA_TOL})")
+        if abs(vid - want) > EXECUTOR_ESA_TOL:
+            failed.append(f"fused {seq} video ESA {vid} is {abs(vid - want):.5f} from JAX's "
+                          f"int8_carry {want}")
+    # Its kernels against their plain versions at the batches this run gave
+    # them: a full chunk and the tail.
+    flat = frames.reshape(-1, *frames.shape[2:])
+    tail = flat.shape[0] % 64 or 64
+    checks = {f"fused chunk of {n}": _hold_temporal_path(
+        torch, f"fused, chunk of {n}", int8_fused, FUSED_LAUNCHES,
+        lambda backend: build_fused_forward(graph, backend=backend, device=dev), part, dev,
+        failed) for n, part in ((64, flat[:64]), (tail, flat[-tail:]))}
+
+    # (c) The carry executor (K1, K2), streaming, one frame at a time.
+    i = seqs.index(STREAM_SCENARIO)
+    carry = SPETorch(None, utils, forward_fn=build_int8_carry_forward(graph, backend="cuda",
+                                                                      device=dev), device=dev)
+    fed, filtered, poses, _ = _stream(torch, np, carry, utils, frames[i], "int8 carry", card)
+    launches["carry_streaming"] = _read_counters("temporal:carry streaming", len(frames[i]),
+                                                 CARRY_LAUNCHES)
+    checks["carry streaming, 1 frame"] = _hold_temporal_path(
+        torch, f"carry streaming, 1 frame of {STREAM_SCENARIO}", int8_carry, CARRY_LAUNCHES,
+        lambda backend: build_int8_carry_forward(graph, backend=backend, device=dev),
+        frames[i][:1], dev, failed)
+    ori = torch.as_tensor(np.stack([p[0] for p in poses]), device=dev)
+    pos = torch.as_tensor(np.stack([p[1] for p in poses]), device=dev)
+    vid = esa(STREAM_SCENARIO, ori, pos)
+    want = rows[STREAM_SCENARIO]["int8_carry"]["video"]["esa"]
+    for k, cfg in zip(("ori", "pos"), filter_defaults("dspeed_video")):
+        scan, _ = scan_filter(torch.from_numpy(np.stack(fed[k])).to(dev), cfg["n"],
+                              cfg["alpha"], cfg["distance_metric"])
+        d = float(np.abs(np.stack(filtered[k]) - scan.cpu().numpy()).max())
+        log(f"[temporal:accuracy] carry streaming {STREAM_SCENARIO}: filtered {k} PDFs against "
+            f"scan_filter over the PDFs fed: max |d| {d:.3e} (at most {STREAM_PDF_TOL})")
+        if not d <= STREAM_PDF_TOL:
+            failed.append(f"streaming {k} PDFs {d} from scan_filter's")
+    log(f"[temporal:accuracy] carry streaming {STREAM_SCENARIO}: video ESA {vid:.6f} (JAX "
+        f"int8_carry {want:.6f}, d {abs(vid - want):.6f}, at most {CARRY_ESA_TOL})")
+    if abs(vid - want) > CARRY_ESA_TOL:
+        failed.append(f"carry streaming video ESA {vid} is {abs(vid - want):.5f} from JAX's "
+                      f"int8_carry {want}")
+
+    # (d) Times on the card.
+    model = load_experiment_model(FLAGSHIP, device=dev, n_ori_bins=utils.orientation.n_bins,
+                                  n_pos_bins=utils.position.n_bins)
+    _stream(torch, np, SPETorch(model, utils, device=dev), utils, frames[i], "float flagship",
+            card)
+    with torch.inference_mode():
+        for b in (32, 64):
+            x8 = torch.from_numpy(flat[:b]).to(dev)
+            x = x8.float() / torch.tensor(255.0, device=dev)
+            log(f"[temporal:time] forward chunk of {b} frames on the card: float "
+                f"{time_ms(lambda: model(x), 5):.3f} ms, fused {time_ms(lambda: fused(x8), 5):.3f} "
+                f"ms (CUDA events) on {card}")
+        x = torch.from_numpy(flat[:TEMPORAL_N_FRAMES + 1]).to(dev).float() / torch.tensor(
+            255.0, device=dev)
+        o, p = model(x)
+        last = utils.last_activ({"ori_soft": o, "pos_soft": p})
+        soft = {"ori": last["ori_soft"].float(), "pos": last["pos_soft"].float()}
+        for k, cfg in zip(("ori", "pos"), filter_defaults("dspeed_video")):
+            one = soft[k]
+            many = one.expand(len(seqs), *one.shape).contiguous()
+            args = (cfg["n"], cfg["alpha"], cfg["distance_metric"])
+            n_k, syncs = _kernels_and_syncs(torch, lambda: scan_filter(one, *args))
+            steps = one.shape[0] - 1
+            log(f"[temporal:time] scan_filter {k} ({tuple(one.shape)}, {cfg['distance_metric']}):"
+                f" {time_ms(lambda: scan_filter(one, *args), 3):.3f} ms a sequence; 11 "
+                f"sequences batched {time_ms(lambda: scan_filter(many, *args), 3):.3f} ms "
+                f"(CUDA events); "
+                f"{n_k / steps if n_k else 'not measured'} CUDA kernels a step "
+                f"({n_k} over {steps} steps and the stack, torch.profiler); "
+                f"{sum(syncs.values())} host synchronizations a call; on {card}")
+        q, _ = utils.orientation.decode_batch(soft["ori"])
+        qs = q.expand(len(seqs), *q.shape).contiguous()
+        log(f"[temporal:time] decode of {soft['ori'].shape[0]} frames: orientation "
+            f"{time_ms(lambda: utils.orientation.decode_batch(soft['ori']), 5):.3f} ms, position "
+            f"{time_ms(lambda: utils.position.decode_batch(soft['pos']), 5):.3f} ms; continuity "
+            f"{time_ms(lambda: quaternion_continuity_scan(q), 3):.3f} ms a sequence, 11 batched "
+            f"{time_ms(lambda: quaternion_continuity_scan(qs), 3):.3f} ms (CUDA events) on {card}")
+    if failed:
+        raise AssertionError("temporal gates failed: " + "; ".join(failed))
+    return launches, checks
+
+
 def phase_bench_construction(torch, np, dev):
     """``bench.py``'s construction on the port: a random-init ``_q`` model at
     256x256, the boundary recipe, converted, served by the int8-carry
@@ -2100,6 +2445,12 @@ def main() -> int:
         del batches
     finally:
         shutil.rmtree(split_root, ignore_errors=True)
+    temporal_root = os.path.join(REPO, "build", f"chip_smoke_temporal_{os.getpid()}")
+    try:
+        temporal_launches, temporal_checks = phase_temporal(
+            torch, np, dev, write_scenarios(temporal_root), card)
+    finally:
+        shutil.rmtree(temporal_root, ignore_errors=True)
     phase_bench_construction(torch, np, dev)
     layer_launches, fused_launches = layer[0], fused[0]
     # K1 and K2 are on three paths: their rows keep the layer executor's
@@ -2122,6 +2473,15 @@ def main() -> int:
         row["launches_accuracy_path"] = {
             name: counts[row["name"]] for name, counts in accuracy_launches.items()
             if counts[row["name"]]}
+        # the 11 scenarios through the fused executor, one scenario streamed
+        # through the carry (phase_temporal)
+        row["launches_temporal_path"] = {
+            path: counts[row["name"]] for path, counts in temporal_launches.items()
+            if counts[row["name"]]}
+        # ... and held against the plain version at those paths' batches
+        row["temporal_path_check"] = {
+            path: checks[row["name"]] for path, checks in temporal_checks.items()
+            if row["name"] in checks}
         if row["name"] in CARRY_LAUNCHES:
             # the graph apps.build_int8 wrote, one request of 64 frames
             # through carry and layer (phase_deploy_build)

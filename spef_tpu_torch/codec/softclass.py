@@ -114,6 +114,9 @@ class OrientationSoftClassification:
             return q_avg[0], h_inv[0]
         return q_avg, h_inv
 
+    # The JAX codec's batched name; ``decode`` already takes ``(B, n_bins)``.
+    decode_batch = decode
+
 
 @dataclasses.dataclass(frozen=True)
 class PositionSoftClassification:
@@ -161,3 +164,5 @@ class PositionSoftClassification:
         probs = probs.float()
         weighted = probs @ self.histogram
         return weighted / probs.sum(dim=-1, keepdim=True)
+
+    decode_batch = decode

@@ -176,6 +176,31 @@ def _render_and_write(path: str, q: np.ndarray, pos: np.ndarray, noise: np.ndarr
     write_png(path, _add_noise(_wireframe(q, pos, camera, img_size), noise))
 
 
+def render_workers() -> int:
+    """The render processes a writer uses by default: one a core but one,
+    at most 8."""
+    return max(1, min(8, (os.cpu_count() or 1) - 1))
+
+
+def write_frames(jobs, workers: int = 1) -> None:
+    """Run :func:`_render_and_write` on each job ``(path, q, pos, noise,
+    camera, img_size)``, in that many spawned processes where ``workers`` >
+    1.  The caller draws each frame's noise, in order, as it makes the job:
+    the files do not depend on ``workers``."""
+    if workers <= 1:
+        for job in jobs:
+            _render_and_write(*job)
+        return
+    with ProcessPoolExecutor(workers, mp_context=get_context("spawn")) as pool:
+        pending = collections.deque()
+        for job in jobs:  # at most 4 frames a worker in flight
+            pending.append(pool.submit(_render_and_write, *job))
+            if len(pending) > 4 * workers:
+                pending.popleft().result()
+        for fut in pending:
+            fut.result()
+
+
 def _write_still_split(still: str, split: str, n: int, rng: np.random.RandomState,
                        img_size: Tuple[int, int], camera: Camera, workers: int = 1) -> None:
     """``{still}/{split}/images/img%06d.png`` + ``pose.json``.  The noise is
@@ -184,20 +209,9 @@ def _write_still_split(still: str, split: str, n: int, rng: np.random.RandomStat
     img_dir = os.path.join(still, split, "images")
     os.makedirs(img_dir, exist_ok=True)
     oris, poss = generate_positions(rng, n, camera)
-    jobs = ((os.path.join(img_dir, f"img{i:06d}.png"), oris[i], poss[i],
-             rng.randn(*img_size, 1) * _NOISE_STD, camera, img_size) for i in range(n))
-    if workers <= 1:
-        for job in jobs:
-            _render_and_write(*job)
-    else:
-        with ProcessPoolExecutor(workers, mp_context=get_context("spawn")) as pool:
-            pending = collections.deque()
-            for job in jobs:  # at most 4 frames a worker in flight
-                pending.append(pool.submit(_render_and_write, *job))
-                if len(pending) > 4 * workers:
-                    pending.popleft().result()
-            for fut in pending:
-                fut.result()
+    write_frames(((os.path.join(img_dir, f"img{i:06d}.png"), oris[i], poss[i],
+                   rng.randn(*img_size, 1) * _NOISE_STD, camera, img_size) for i in range(n)),
+                 workers)
     labels = [{"filename": f"img{i:06d}.png", "q": oris[i].tolist(), "t": poss[i].tolist()}
               for i in range(n)]
     with open(os.path.join(still, split, "pose.json"), "w") as f:

@@ -1,8 +1,9 @@
 """The port stands alone: importing every ``spef_tpu_torch`` module pulls in
 neither JAX, flax nor any module of the JAX package, and none of the host
 libraries the card's machine does not promise (PIL, OpenCV, pandas, PyYAML,
-msgpack): the port decodes PNGs, draws frames, reads configs and writes
-checkpoints and scores itself."""
+msgpack, matplotlib): the port decodes PNGs, draws frames, reads configs and
+writes checkpoints and scores itself, and imports matplotlib only where a
+figure is drawn."""
 
 import os
 import subprocess
@@ -22,7 +23,7 @@ print(len(names))
 assert not bad, bad
 assert "triton" not in sys.modules
 host = sorted(m for m in sys.modules
-              if m.split(".")[0] in ("PIL", "cv2", "pandas", "yaml", "msgpack"))
+              if m.split(".")[0] in ("PIL", "cv2", "pandas", "yaml", "msgpack", "matplotlib"))
 assert not host, host
 """
 
