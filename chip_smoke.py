@@ -155,7 +155,38 @@ each printed on its own lines; any failure exits nonzero:
      chunks, ``scan_filter`` a sequence with its kernels a step
      (``torch.profiler``) and host syncs, decode and continuity (CUDA
      events); the ``kernels`` line's ``launches_temporal_path``;
- 14. the last line: ``{"ok": true, "device": {...}}``.
+ 14. deploy and serve, after phase 12 while phase 8's test split is on disk:
+     (a) ``python -m spef_tpu_torch.apps.export`` (its ``main``) of the float
+     flagship and, on a temporary experiment (the flagship's config,
+     ``model/`` linked, the committed asset as ``int8_graph.pkl``), of
+     ``--int8`` and ``--int8 --weight-only``, at batch 256 on the card
+     (``torch.export``; the export path reaches no hand kernel); (b) each
+     ``.spef`` served in a fresh process by ``python -m
+     spef_tpu_torch.apps.serve --artifact ... --frames-dir`` on the first
+     256 test frames, its printed poses held to the artifact loaded here at
+     print precision, and the loaded artifact to the live engine on the same
+     frames (float: log-PDFs within 1e-3, poses within 0.01 deg and 1e-3 m;
+     int8 and weight-only: log-PDFs within 1e-5), each artifact's size and
+     load time; (c) ``serving.serve_stream`` at depth 2 (pinned ring, copy
+     stream) on the ``fused`` and ``carry`` executors and on the ``fused``
+     forward alone (no decode), over 16 distinct batches of 256 frames,
+     counters 0 before and read after (16 forwards' launches), each result
+     in order bit for bit ``PoseServer.predict``'s, frames/s streamed
+     against sequential and against the same ring staged in the caller's
+     thread (no staging thread; in turns), the host synchronizations of one
+     predict; (d) the 70.8 MB batch's copy to the card, pageable against
+     pinned (CUDA events), and request p50 / p95 at windows 1 and 256 for
+     float and ``fused`` through ``PoseServer``'s pinned staging and
+     through a pageable copy, in turns; (e) ``python -m
+     spef_tpu_torch.apps.benchmark`` (its ``main``) on every path at batch
+     64, 240x384, its JSON printed, the ``int8_cuda`` path's launches
+     counted (34 K1 and 17 K2 a forward), then every K1 and K2 call of one
+     ``int8_cuda`` forward on the benchmark's own graph (default bit widths)
+     and batch held against its plain version by ``check_call``, and the
+     forward's logits against the plain backend's (0.3); (f)
+     ``apps.nn_stats`` on the flagship's shape, its totals; the ``kernels``
+     line's ``launches_deploy_path`` and ``deploy_path_check``;
+ 15. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, where ``torch.cuda.is_available()`` is
 false or the package is missing.
@@ -2141,10 +2172,10 @@ def _stream(torch, np, engine, utils, frames, label, card):
     return fed, filtered, poses, ms
 
 
-def _hold_temporal_path(torch, label, module, names, build, frames, dev, failed):
+def _hold_path(torch, tag, label, module, names, build, frames, dev, failed):
     """Every call of the kernels ``names`` (wrappers bound in ``module``) in
-    one forward of ``build(backend)`` on ``frames`` (uint8, a temporal
-    path's own batch) held by ``check_call``; then the forward's logits
+    one forward of ``build(backend)`` on ``frames`` (uint8, the path's own
+    batch) held by ``check_call``; then the forward's logits
     against the plain backend's, within 0.3.  A disagreement goes into
     ``failed``.  Returns {kernel: {calls, input, mismatches, max_abs_err}}."""
     from spef_tpu_torch.ops import fused_block, int8_ops
@@ -2164,7 +2195,7 @@ def _hold_temporal_path(torch, label, module, names, build, frames, dev, failed)
                 bad += 1
                 continue
             mis_sum, max_err = mis_sum + mis, max(max_err, err)
-        log(f"[temporal:kernels] {label}: {name}, {len(recs)} calls (first input "
+        log(f"[{tag}:kernels] {label}: {name}, {len(recs)} calls (first input "
             f"{tuple(recs[0][0][0].shape)} {recs[0][0][0].dtype}) against the plain version: "
             f"{bad} calls failed; in the others {mis_sum} mismatches, each at a tie the rule admits; max |kernel - plain| "
             f"{max_err:g}")
@@ -2173,7 +2204,7 @@ def _hold_temporal_path(torch, label, module, names, build, frames, dev, failed)
     x = torch.from_numpy(frames).to(dev)
     got, want = build(backend="cuda")(x), build(backend="plain")(x)
     d = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
-    log(f"[temporal:kernels] {label}: kernels vs plain backend on {len(frames)} frames, max "
+    log(f"[{tag}:kernels] {label}: kernels vs plain backend on {len(frames)} frames, max "
         f"|d logit| {d:.4g} (at most 0.3)")
     if not d < 0.3:
         failed.append(f"{label}: kernels {d} in logits from the plain backend")
@@ -2294,8 +2325,8 @@ def phase_temporal(torch, np, dev, video, card):
     # them: a full chunk and the tail.
     flat = frames.reshape(-1, *frames.shape[2:])
     tail = flat.shape[0] % 64 or 64
-    checks = {f"fused chunk of {n}": _hold_temporal_path(
-        torch, f"fused, chunk of {n}", int8_fused, FUSED_LAUNCHES,
+    checks = {f"fused chunk of {n}": _hold_path(
+        torch, "temporal", f"fused, chunk of {n}", int8_fused, FUSED_LAUNCHES,
         lambda backend: build_fused_forward(graph, backend=backend, device=dev), part, dev,
         failed) for n, part in ((64, flat[:64]), (tail, flat[-tail:]))}
 
@@ -2306,8 +2337,8 @@ def phase_temporal(torch, np, dev, video, card):
     fed, filtered, poses, _ = _stream(torch, np, carry, utils, frames[i], "int8 carry", card)
     launches["carry_streaming"] = _read_counters("temporal:carry streaming", len(frames[i]),
                                                  CARRY_LAUNCHES)
-    checks["carry streaming, 1 frame"] = _hold_temporal_path(
-        torch, f"carry streaming, 1 frame of {STREAM_SCENARIO}", int8_carry, CARRY_LAUNCHES,
+    checks["carry streaming, 1 frame"] = _hold_path(
+        torch, "temporal", f"carry streaming, 1 frame of {STREAM_SCENARIO}", int8_carry, CARRY_LAUNCHES,
         lambda backend: build_int8_carry_forward(graph, backend=backend, device=dev),
         frames[i][:1], dev, failed)
     ori = torch.as_tensor(np.stack([p[0] for p in poses]), device=dev)
@@ -2368,6 +2399,386 @@ def phase_temporal(torch, np, dev, video, card):
     if failed:
         raise AssertionError("temporal gates failed: " + "; ".join(failed))
     return launches, checks
+
+
+# ---------------------------------------------------------------------------
+# Deploy and serve
+# ---------------------------------------------------------------------------
+
+DEPLOY_FRAMES = 256  # the test split's first frames, served from a directory
+STREAM_BATCHES = 16  # distinct batches of BATCH frames through serve_stream
+FLOAT_LOGP_TOL = 1e-3  # the float artifact's log-PDFs against the live engine's
+INT8_LOGP_TOL = 1e-5  # the int8 / weight-only artifacts' against their live forwards
+POSE_DEG_TOL, POSE_M_TOL = 0.01, 1e-3  # the float artifact's poses against the live ones
+# PERF.md §5: request p50 at batch 256 with the pageable copy (an earlier run).
+PAGEABLE_P50 = {"float": 50.13, "fused": 18.62}
+BENCH_PATHS = ("float", "forward", "int8_cuda", "int8_plain", "weight_only", "train")
+BENCH_BATCH, BENCH_ITERS = 64, 10
+SERVE_LINE = r"^(\S+\.png): q=(\[[^\]]*\]) t=(\[[^\]]*\])$"
+
+
+def _max_logp(torch, a, b):
+    """max |d log p| over the two soft-class PDFs of two pose dicts."""
+    return max(float((torch.log(torch.as_tensor(a[k]).double())
+                      - torch.log(torch.as_tensor(b[k]).double())).abs().max())
+               for k in ("ori_soft", "pos_soft"))
+
+
+def _pose_gap(np, a, b):
+    """(max orientation deg, max position m) between two pose dicts."""
+    qa, qb = np.asarray(a["ori"], np.float64), np.asarray(b["ori"], np.float64)
+    qa = qa / np.linalg.norm(qa, axis=-1, keepdims=True)
+    qb = qb / np.linalg.norm(qb, axis=-1, keepdims=True)
+    dot = np.clip(np.abs((qa * qb).sum(-1)), 0.0, 1.0)
+    deg = 2.0 * np.degrees(np.arccos(dot))
+    dist = np.linalg.norm(np.asarray(a["pos"], np.float64) - np.asarray(b["pos"], np.float64),
+                          axis=-1)
+    return float(deg.max()), float(dist.max())
+
+
+def _serve_lines(np, text):
+    """{frame name: (q, t)} of ``apps.serve --frames-dir``'s lines."""
+    import re
+
+    rows = {}
+    for line in text.splitlines():
+        m = re.match(SERVE_LINE, line)
+        if m:
+            rows[m.group(1)] = tuple(np.array(json.loads(m.group(i))) for i in (2, 3))
+    return rows
+
+
+def _deploy_exports(torch, np, dev, root):
+    """(a) The float flagship, and the committed graph's int8 and
+    weight-only executors (a temporary experiment: the flagship's config,
+    ``model/`` linked, the asset as ``int8_graph.pkl``), exported at batch
+    256 on the card by ``apps.export``; returns {variant: (path, live
+    predict function)}."""
+    from spef_tpu_torch.apps import export as export_app
+    from spef_tpu_torch.codec.facade import SPEUtils
+    from spef_tpu_torch.data.camera import SPEED_CAMERA
+    from spef_tpu_torch.engine import build_predict_fn
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph
+    from spef_tpu_torch.quant.int8_model import build_int8_forward, build_weight_only_forward
+
+    exp = os.path.join(root, "exp_int8")
+    os.makedirs(exp)
+    shutil.copy(os.path.join(FLAGSHIP, "config.yaml"), exp)
+    os.symlink(os.path.join(FLAGSHIP, "model"), os.path.join(exp, "model"))
+    os.symlink(ASSET, os.path.join(exp, "int8_graph.pkl"))
+    graph = load_int8_graph(ASSET)
+    utils = SPEUtils.create(SPEED_CAMERA, ori_mode="classification", pos_mode="classification",
+                            device=dev)
+    float_server, _ = _serve(torch, ["--experiment", FLAGSHIP, "--batch", str(BATCH),
+                                     "--device", dev.type])
+    out = {}
+    for variant, argv, live in (
+            ("float", ["--experiment", FLAGSHIP], float_server.predict_fn),
+            ("int8", ["--experiment", exp, "--int8"],
+             build_predict_fn(None, utils, forward_fn=build_int8_forward(graph, device=dev))),
+            ("weight_only", ["--experiment", exp, "--int8", "--weight-only"],
+             build_predict_fn(None, utils,
+                              forward_fn=build_weight_only_forward(graph, device=dev)))):
+        path = os.path.join(root, f"{variant}.spef")
+        t0 = time.perf_counter()
+        meta = export_app.main([*argv, "--out", path, "--batch", str(BATCH), "--device",
+                                dev.type])
+        assert meta["variant"] == variant and meta["platforms"] == [dev.type], meta
+        log(f"[deploy] export {variant}: {time.perf_counter() - t0:.2f} s (trace, one run, "
+            f"save), {os.path.getsize(path) / 1e6:.1f} MB")
+        out[variant] = (path, live)
+    return out
+
+
+def _deploy_serve_artifacts(torch, np, dev, still, root, exports):
+    """(b) Each artifact served in a fresh process by ``apps.serve
+    --artifact --frames-dir`` on the first 256 test frames (the three at
+    once); its printed poses against the artifact loaded here (print
+    precision), and the loaded artifact against the live engine on the same
+    frames; returns the failed gates."""
+    from spef_tpu_torch.data.dataset import load_image
+    from spef_tpu_torch.deploy import load_exported
+
+    images = os.path.join(still, "test", "images")
+    names = sorted(os.listdir(images))[:DEPLOY_FRAMES]
+    frames_dir = os.path.join(root, "frames")
+    os.makedirs(frames_dir)
+    for name in names:
+        os.symlink(os.path.join(images, name), os.path.join(frames_dir, name))
+    frames = np.stack([load_image(os.path.join(frames_dir, n), (240, 384)) for n in names])
+    t0 = time.perf_counter()
+    procs = {variant: subprocess.Popen(
+        [sys.executable, "-m", "spef_tpu_torch.apps.serve", "--artifact", path, "--frames-dir",
+         frames_dir, "--device", dev.type], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for variant, (path, _) in exports.items()}
+    printed = {}
+    for variant, proc in procs.items():
+        text, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"apps.serve --artifact {variant} failed:\n{text[-3000:]}")
+        printed[variant] = _serve_lines(np, text)
+        stats = [line for line in text.splitlines() if line.startswith("latency stats")]
+        log(f"[deploy] serve --artifact {variant}.spef --frames-dir ({len(names)} frames, a "
+            f"fresh process): {len(printed[variant])} lines; {stats[-1] if stats else ''}")
+    log(f"[deploy] the three serve processes: {time.perf_counter() - t0:.2f} s wall")
+    failed = []
+    _reset_counters()
+    for variant, (path, live) in exports.items():
+        t0 = time.perf_counter()
+        engine = load_exported(path)
+        load_s = time.perf_counter() - t0
+        got, ms = engine.predict(frames)
+        got = {k: v.cpu().numpy() for k, v in got.items()}
+        want = {k: v.cpu().numpy() for k, v in live(torch.from_numpy(frames).to(dev)).items()}
+        rows = printed[variant]
+        assert sorted(rows) == names, (variant, len(rows))
+        d_q = max(float(np.abs(rows[n][0] * np.sign(rows[n][0] @ got["ori"][i])
+                               - got["ori"][i]).max()) for i, n in enumerate(names))
+        d_t = max(float(np.abs(rows[n][1] - got["pos"][i]).max()) for i, n in enumerate(names))
+        logp = _max_logp(torch, got, want)
+        deg, dist = _pose_gap(np, got, want)
+        log(f"[deploy] {variant}.spef: {os.path.getsize(path) / 1e6:.1f} MB, loaded in "
+            f"{load_s:.2f} s, a request of {len(names)} {ms:.2f} ms; printed lines vs the loaded "
+            f"artifact: max |d q| {d_q:.2e} (up to sign), max |d t| {d_t:.2e} m; artifact vs "
+            f"live on {dev.type}: max |d log p| {logp:.3e}, orientation {deg:.5f} deg, "
+            f"position {dist:.2e} m")
+        tol = FLOAT_LOGP_TOL if variant == "float" else INT8_LOGP_TOL
+        if not (d_q <= 1.01e-4 and d_t <= 1.001e-3):
+            failed.append(f"{variant}: printed poses {d_q}, {d_t} from the artifact's")
+        if not logp <= tol:
+            failed.append(f"{variant}: log-PDFs {logp} from the live engine (at most {tol})")
+        if variant == "float" and not (deg <= POSE_DEG_TOL and dist <= POSE_M_TOL):
+            failed.append(f"float: poses {deg} deg, {dist} m from the live engine (at most "
+                          f"{POSE_DEG_TOL}, {POSE_M_TOL})")
+    _read_counters("deploy:artifacts", 0, {})  # the exported programs reach no kernel
+    return failed
+
+
+def _stream_in_caller(torch, predict, batches, dev, depth=2):
+    """A yardstick for ``serve_stream``'s staging thread: the same ring of
+    pinned buffers, copy stream and events, with each batch's copy into its
+    buffer made in the caller's thread, between the forwards; yields the
+    results in order."""
+    import collections
+
+    compute, copy_stream = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+    ring = [torch.empty(batches[0].shape, dtype=torch.uint8, pin_memory=True)
+            for _ in range(depth)]
+    copied, pending = [None] * depth, collections.deque()
+    for i, batch in enumerate(batches):
+        slot = i % depth
+        if copied[slot] is not None:
+            copied[slot].synchronize()
+        ring[slot].numpy()[...] = batch
+        with torch.cuda.stream(copy_stream):
+            x = ring[slot].to(dev, non_blocking=True)
+            copied[slot] = torch.cuda.Event()
+            copied[slot].record(copy_stream)
+        compute.wait_event(copied[slot])
+        x.record_stream(compute)
+        out, done = predict(x), torch.cuda.Event()
+        done.record(compute)
+        pending.append((out, done))
+        if len(pending) >= depth:
+            out, done = pending.popleft()
+            done.synchronize()
+            yield out
+    while pending:
+        out, done = pending.popleft()
+        done.synchronize()
+        yield out
+
+
+def _deploy_stream(torch, np, dev, executor, batches, decode=True):
+    """(c) ``serve_stream`` at depth 2 over distinct batches on one
+    executor, counters 0 before and read after; each result, in order, bit
+    for bit ``PoseServer.predict``'s on its batch; frames/s streamed,
+    streamed with the staging in the caller's thread (``_stream_in_caller``)
+    and sequential (host clock, results to the host in all three); the host
+    synchronizations one predict makes.  ``decode=False`` streams the
+    forward alone (the logits), without the decode's ``eigh``."""
+    from spef_tpu_torch.codec.facade import SPEUtils
+    from spef_tpu_torch.data.camera import SPEED_CAMERA
+    from spef_tpu_torch.engine import build_predict_fn
+    from spef_tpu_torch.quant.int8_carry import build_int8_carry_forward
+    from spef_tpu_torch.quant.int8_fused import build_fused_forward
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph
+    from spef_tpu_torch.serving import PoseServer, serve_stream
+
+    build, per_forward = {"fused": (build_fused_forward, FUSED_LAUNCHES),
+                          "carry": (build_int8_carry_forward, CARRY_LAUNCHES)}[executor]
+    utils = SPEUtils.create(SPEED_CAMERA, ori_mode="classification", pos_mode="classification",
+                            device=dev)
+    fwd = build(load_int8_graph(ASSET), backend="cuda", device=dev)
+    if decode:
+        predict = build_predict_fn(None, utils, forward_fn=fwd)
+    else:
+        executor = f"{executor} forward"
+
+        @torch.inference_mode()
+        def predict(x):
+            return dict(zip(("ori_logits", "pos_logits"), fwd(x)))
+    server = PoseServer(predict, (240, 384, 3), max_batch=BATCH, device=dev)
+    server.warmup()
+
+    runs = {
+        "streamed": lambda: serve_stream(predict, iter(batches), depth=2, device=dev),
+        "caller-staged": lambda: _stream_in_caller(torch, predict, batches, dev),
+        "sequential": lambda: (server.predict(b)[0] for b in batches),
+    }
+    # In turns, each twice; the counters read the first streamed run alone.
+    seconds, results = {mode: [] for mode in runs}, {}
+    for mode in ("sequential", "streamed", "caller-staged", "caller-staged", "streamed",
+                 "sequential"):
+        if mode == "streamed" and mode not in results:
+            _reset_counters()
+        t0 = time.perf_counter()
+        out = [{k: np.asarray(v.cpu()) if torch.is_tensor(v) else v for k, v in res.items()}
+               for res in runs[mode]()]
+        seconds[mode].append(time.perf_counter() - t0)
+        if mode not in results:
+            results[mode] = out
+            if mode == "streamed":
+                launches = _read_counters(f"deploy:stream {executor}", len(batches),
+                                          per_forward)
+    for mode in ("streamed", "caller-staged"):
+        assert len(results[mode]) == len(batches), (mode, len(results[mode]))
+        for i, (a, b) in enumerate(zip(results[mode], results["sequential"])):
+            for k in b:
+                if not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"{mode} {executor}: batch {i} {k} differs from "
+                                         f"PoseServer.predict's")
+    n = len(batches) * BATCH
+    x = torch.from_numpy(batches[0]).to(dev)
+    _, syncs = _kernels_and_syncs(torch, lambda: predict(x))
+    fps = {mode: ", ".join(f"{n / t:.1f}" for t in ts) for mode, ts in seconds.items()}
+    log(f"[deploy] serve_stream depth 2, {executor}: {len(batches)} distinct batches of {BATCH}, "
+        f"each bit for bit PoseServer.predict's, in order; frames/s streamed {fps['streamed']} "
+        f"vs staged in the caller's thread {fps['caller-staged']} vs sequential "
+        f"{fps['sequential']} (in turns: sequential, streamed, caller-staged, caller-staged, "
+        f"streamed, sequential; host clock, results to the host); host synchronizations in "
+        f"one predict: {syncs or 0}")
+    return launches
+
+
+def _deploy_copies(torch, np, dev, frames):
+    """(d) The batch's host-to-device copy, pageable against pinned (CUDA
+    events), the staging copy into the pinned buffer (host clock); request
+    p50 / p95 at windows 1 and 256 through ``PoseServer`` (pinned staging)
+    and through a pageable copy, in turns."""
+    pinned = torch.empty(frames.shape, dtype=torch.uint8, pin_memory=True)
+    assert pinned.is_pinned()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        pinned.numpy()[...] = frames
+    stage_ms = (time.perf_counter() - t0) / 5 * 1e3
+    pageable = time_ms(lambda: torch.from_numpy(frames).to(dev), reps=5)
+    pinned_ms = time_ms(lambda: pinned.to(dev, non_blocking=True), reps=5)
+    mb = frames.nbytes / 1e6
+    log(f"[deploy] the {mb:.1f} MB batch to the card: pageable {pageable:.3f} ms "
+        f"({mb / pageable:.1f} GB/s), pinned {pinned_ms:.3f} ms ({mb / pinned_ms:.1f} GB/s) "
+        f"(CUDA events); the host's copy into the pinned buffer {stage_ms:.3f} ms (host clock)")
+    def pageable(server, request):
+        """The request path before pinned staging: a pageable copy."""
+        t0 = time.perf_counter()
+        server.predict_fn(torch.from_numpy(request).to(dev))
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3
+
+    for label, extra in (("float", []),
+                         ("fused", ["--int8-graph", ASSET, "--int8-executor", "fused"])):
+        for window in (BATCH, 1):
+            server, _ = _serve(torch, ["--experiment", FLAGSHIP, *extra, "--batch", str(window),
+                                       "--device", dev.type])
+            server.warmup()
+            request = np.ascontiguousarray(frames[:window])
+            times = {"pinned": [], "pageable": []}
+            for mode in ("pageable", "pinned", "pinned", "pageable"):  # in turns, 10 each
+                for _ in range(10):
+                    times[mode].append(server.predict(request)[1] if mode == "pinned"
+                                       else pageable(server, request))
+            parts = [f"{mode} p50 {np.percentile(ts, 50):.3f} ms, p95 "
+                     f"{np.percentile(ts, 95):.3f}" for mode, ts in times.items()]
+            beside = (f"; pageable p50 {PAGEABLE_P50[label]} ms in PERF.md §5"
+                      if window == BATCH else "")
+            log(f"[deploy] {label} window {window}, 20 requests a path in turns (host clock): "
+                f"{'; '.join(parts)}{beside}")
+
+
+def _deploy_tools(torch, np, dev, root, failed):
+    """(e) ``apps.benchmark`` on every path (counters 0 before and read
+    after: the int8_cuda path's forwards only), then K1 and K2 at that
+    path's own graph and batch against their plain versions (``_hold_path``,
+    disagreements into ``failed``); (f) ``apps.nn_stats`` on the flagship's
+    shape; returns the benchmark's launches and the checks."""
+    import contextlib
+    import io
+
+    import spef_tpu_torch.quant.int8_cuda as int8_cuda
+    from spef_tpu_torch.apps import benchmark, nn_stats
+    from spef_tpu_torch.codec.facade import SPEUtils
+    from spef_tpu_torch.data.camera import SPEED_CAMERA
+
+    out = os.path.join(root, "benchmark.json")
+    _reset_counters()
+    t0 = time.perf_counter()
+    results = benchmark.main(["--paths", *BENCH_PATHS, "--batch", str(BENCH_BATCH), "--img",
+                              "240", "384", "--iters", str(BENCH_ITERS), "--json", out,
+                              "--device", dev.type])
+    # int8_cuda: 3 warm-up and BENCH_ITERS timed forwards
+    launches = _read_counters("deploy:benchmark", 3 + BENCH_ITERS, LAYER_LAUNCHES)
+    with open(out) as f:
+        assert json.load(f) == results
+    log(f"[deploy] apps.benchmark --batch {BENCH_BATCH} --img 240 384 --iters {BENCH_ITERS} "
+        f"({time.perf_counter() - t0:.1f} s): {json.dumps(results)}")
+    # Its int8_cuda forward, rebuilt as it built it: the default bit widths,
+    # not the boundary recipe of the other phases.
+    spe = SPEUtils.create(SPEED_CAMERA, ori_mode="classification", pos_mode="classification",
+                          use_keypoints=False, device=dev)
+    graph = benchmark.int8_graph(spe, (240, 384), dev)
+    checks = _hold_path(
+        torch, "deploy", f"apps.benchmark int8_cuda, batch {BENCH_BATCH}", int8_cuda,
+        LAYER_LAUNCHES, lambda backend: int8_cuda.build_cuda_forward(graph, backend=backend,
+                                                                     device=dev),
+        benchmark.frames(BENCH_BATCH, (240, 384)), dev, failed)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        summary = nn_stats.main(["--img-size", "240", "384"])
+    for line in text.getvalue().splitlines():
+        if line.startswith(("TOTAL", "Conv2D", "Dense", "BatchNorm", "Bias")):
+            log(f"[deploy] nn_stats {line}")
+    assert (summary["total_params"], summary["total_macs"]) == (3_805_907, 561_320_704)
+    return launches, checks
+
+
+def phase_deploy_serve(torch, np, dev, still):
+    """Deploy and serve on the flagship: (a) exports, (b) the artifacts
+    served from a directory of test frames in fresh processes, (c)
+    ``serve_stream`` on ``fused`` and ``carry``, (d) pageable against pinned
+    copies and request latency, (e) ``apps.benchmark``, (f)
+    ``apps.nn_stats``.  Returns ({path: launches}, {path: kernel checks})."""
+    root = os.path.join(REPO, "build", f"chip_smoke_deploy_{os.getpid()}")
+    os.makedirs(root)
+    try:
+        t0 = time.perf_counter()
+        exports = _deploy_exports(torch, np, dev, root)
+        failed = _deploy_serve_artifacts(torch, np, dev, still, root, exports)
+        del exports
+        base = np.random.default_rng(5).integers(0, 256, (BATCH, 240, 384, 3), np.uint8)
+        batches = [base ^ np.uint8(i) for i in range(STREAM_BATCHES)]
+        launches = {f"stream_{ex}": _deploy_stream(torch, np, dev, ex, batches)
+                    for ex in ("fused", "carry")}
+        launches["stream_fused_forward"] = _deploy_stream(torch, np, dev, "fused", batches,
+                                                          decode=False)
+        del batches
+        _deploy_copies(torch, np, dev, base)
+        launches["benchmark_int8_cuda"], checks = _deploy_tools(torch, np, dev, root, failed)
+        log(f"[deploy] phase: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if failed:
+        raise AssertionError("deploy gates failed: " + "; ".join(failed))
+    return launches, {"benchmark_int8_cuda": checks}
 
 
 def phase_bench_construction(torch, np, dev):
@@ -2443,6 +2854,7 @@ def main() -> int:
         accuracy_launches, batches = phase_accuracy(torch, np, dev, still)
         phase_keypoints(torch, np, dev, still, batches)
         del batches
+        deploy_launches, deploy_checks = phase_deploy_serve(torch, np, dev, still)
     finally:
         shutil.rmtree(split_root, ignore_errors=True)
     temporal_root = os.path.join(REPO, "build", f"chip_smoke_temporal_{os.getpid()}")
@@ -2481,6 +2893,15 @@ def main() -> int:
         # ... and held against the plain version at those paths' batches
         row["temporal_path_check"] = {
             path: checks[row["name"]] for path, checks in temporal_checks.items()
+            if row["name"] in checks}
+        # serve_stream over 16 batches on fused and carry, and
+        # apps.benchmark's int8_cuda path (phase_deploy_serve)
+        row["launches_deploy_path"] = {
+            path: counts[row["name"]] for path, counts in deploy_launches.items()
+            if counts[row["name"]]}
+        # ... the benchmark's int8_cuda calls held against the plain version
+        row["deploy_path_check"] = {
+            path: checks[row["name"]] for path, checks in deploy_checks.items()
             if row["name"] in checks}
         if row["name"] in CARRY_LAUNCHES:
             # the graph apps.build_int8 wrote, one request of 64 frames

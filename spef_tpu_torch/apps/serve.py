@@ -3,14 +3,28 @@
 Counterpart of ``spef_tpu.apps.serve``: loads a trained experiment (float
 checkpoint, or a QAT one: ``model/bit_width.json`` beside the weights
 selects the quantized ``_q`` models), optionally with a converted
-``int8_graph.pkl``, builds the serving program on one device and runs a
-throughput / latency self-test.
+``int8_graph.pkl``, or an exported ``.spef`` artifact, builds the serving
+program on one device (``serving.PoseServer``: a padded window, pinned
+host staging on ``cuda``) and either runs a throughput / latency self-test
+or serves the frames of a directory.
 
 Usage:
     python -m spef_tpu_torch.apps.serve --experiment experiments/train_synth/exp_dspeed_synth \\
         [--int8-graph spef_tpu_torch/assets/flagship_boundary_int8_graph.pkl] \\
         [--int8-executor layer|fused|carry|weight-only] [--int8-backend cuda|plain] \\
-        [--batch 256] [--selftest-frames 2048] [--device cuda]
+        [--batch 256] [--selftest-frames 2048] [--frames-dir path/] [--device cuda]
+    python -m spef_tpu_torch.apps.serve --artifact model.spef \\
+        [--selftest-frames 2048] [--frames-dir path/] [--device cuda]
+
+An ``--artifact`` (``.spef`` from ``apps/export.py``) serves the exported
+program itself: no experiment directory, model code or weight files; its
+window is the exported batch, and the flags that pick a variant or a window
+(``--int8-*``, the keypoints flags, ``--batch``) are refused beside it.
+``--frames-dir`` serves every ``*.png`` of a directory (sorted, read by
+``data/dataset.py::load_image`` and resized to the model's input) in
+requests of the window and prints one ``name: q=[...] t=[...]`` line a
+frame and the latency stats; JPEG frames need the native
+loader, which is not ported (ROADMAP §A, item 7), and are refused.
 
 The int8 executors of ``--int8-graph``:
 
@@ -31,14 +45,12 @@ at the fine model's input size) with the decode inside the served predict.
 The int8 graph's schema is MobileNetV2 + URSONet only, so ``--crop-refine``
 takes no ``--int8-graph``: the engine's ``crop-refine-w8`` variant is the
 two-pass pipeline's quantized form.
-
-``--frames-dir``, the native frame loader and ``--artifact`` come in later
-slices (ROADMAP §A: data, deploy and serve).
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import os
 import time
 from typing import List, Optional, Tuple
@@ -46,13 +58,15 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["build_server", "main", "parse_args"]
+__all__ = ["build_server", "load_artifact", "main", "parse_args", "serve_frames_dir"]
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--experiment", required=True)
+    parser.add_argument("--experiment", default=None)
+    parser.add_argument("--artifact", default=None,
+                        help=".spef deploy artifact (apps/export.py); replaces --experiment")
     parser.add_argument("--int8-graph", default=None, help="int8_graph.pkl (numpy leaves)")
     parser.add_argument("--int8-executor", default="layer",
                         choices=["layer", "fused", "carry", "weight-only"],
@@ -62,6 +76,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--int8-backend", default="cuda", choices=["cuda", "plain"])
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--selftest-frames", type=int, default=2048)
+    parser.add_argument("--frames-dir", default=None, help="serve real frames from here")
     parser.add_argument("--ransac", action="store_true",
                         help="keypoints mode: RANSAC PnP decode instead of plain EPnP")
     parser.add_argument("--border-gate", type=float, default=None,
@@ -71,7 +86,33 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="keypoints mode: serve the two-pass crop-refine pipeline, this "
                              "experiment the coarse pass and FINE_EXP the crop-trained fine pass")
     parser.add_argument("--device", default="cuda")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if bool(args.experiment) == bool(args.artifact):
+        parser.error("exactly one of --experiment / --artifact is required")
+    if args.artifact:
+        # The artifact fixes its variant and window: these would be ignored.
+        given = [f"--{dest.replace('_', '-')}" for dest in (
+            "int8_graph", "int8_executor", "int8_backend", "batch", "ransac", "border_gate",
+            "crop_refine") if getattr(args, dest) != parser.get_default(dest)]
+        if given:
+            parser.error(f"--artifact serves the exported program as it is (its variant and "
+                         f"window): {', '.join(given)} applies only to --experiment")
+    return args
+
+
+def load_artifact(args: argparse.Namespace):
+    """(PoseServer, img_size) serving the exported program of ``args.artifact``
+    on ``args.device``, its window the exported batch."""
+    from spef_tpu_torch.deploy import load_exported
+    from spef_tpu_torch.serving import PoseServer
+
+    engine = load_exported(args.artifact, device=args.device)
+    img_size = tuple(engine.meta["img_size"])
+    args.batch = engine.batch
+    print(f"Serving AOT artifact {args.artifact} "
+          f"(variant={engine.meta.get('variant')}, window={engine.batch}x{img_size})")
+    return PoseServer(engine, img_shape=(*img_size, 3), max_batch=engine.batch,
+                      device=args.device), img_size
 
 
 def build_server(args: argparse.Namespace):
@@ -163,14 +204,34 @@ def run_selftest(args: argparse.Namespace, server, img_size: Tuple[int, int]) ->
     return fps
 
 
+def serve_frames_dir(args: argparse.Namespace, server, img_size: Tuple[int, int]) -> None:
+    """Every frame of ``args.frames_dir`` in requests of the window: one
+    ``name: q=[...] t=[...]`` line a frame, then the latency stats."""
+    from spef_tpu_torch.data.dataset import load_image
+
+    paths = sorted(glob.glob(os.path.join(args.frames_dir, "*.png"))
+                   + glob.glob(os.path.join(args.frames_dir, "*.jpg")))
+    for start in range(0, len(paths), args.batch):
+        chunk = paths[start:start + args.batch]
+        frames = np.stack([load_image(p, img_size) for p in chunk])
+        pose, _ = server.predict(frames)
+        for p, q, t in zip(chunk, pose["ori"], pose["pos"]):
+            print(f"{os.path.basename(p)}: q={np.round(q, 4).tolist()} "
+                  f"t={np.round(t, 3).tolist()}")
+    print(f"latency stats: {server.stats()}")
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to serve on the CPU")
-    server, img_size = build_server(args)
+    server, img_size = load_artifact(args) if args.artifact else build_server(args)
     print(f"Warming up (batch window {args.batch})...")
     print(f"Ready in {server.warmup():.1f}s on {args.device}")
-    run_selftest(args, server, img_size)
+    if args.frames_dir:
+        serve_frames_dir(args, server, img_size)
+    else:
+        run_selftest(args, server, img_size)
 
 
 if __name__ == "__main__":

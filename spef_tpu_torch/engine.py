@@ -17,7 +17,8 @@ contract.
 
 ``discover_engine_variants`` / ``build_engine_variant`` serve an
 experiment's artifacts: the float (or QAT) model, the ``weight-only``
-and ``int8-carry`` executors of its ``int8_graph.pkl``, and the two-pass
+and ``int8-carry`` executors of its ``int8_graph.pkl``, its exported
+``model.spef`` (``deploy.load_exported``), and the two-pass
 ``crop-refine`` / ``crop-refine-w8`` variants its ``crop_refine.json``
 points at.
 """
@@ -226,7 +227,7 @@ def load_experiment_model(exp_dir: str, device: str = "cuda", **kw) -> torch.nn.
 
 
 def build_engine_variant(exp_dir: str, model: Optional[torch.nn.Module], spe_utils: SPEUtils,
-                         variant: str = "float", device: str = "cuda") -> SPETorch:
+                         variant: str = "float", device: str = "cuda"):
     """A ``predict``-contract engine for one variant of an experiment.
 
     ``float`` runs ``model`` (the float or the QAT model); ``weight-only``
@@ -238,12 +239,16 @@ def build_engine_variant(exp_dir: str, model: Optional[torch.nn.Module], spe_uti
     names (``fine_exp``) as the fine pass, at the fine config's image size,
     with the registry's ``gate`` (0.02 where it has none);
     ``crop-refine-w8`` the same on copies of both models whose kernels are
-    snapped to per-channel int8 grids (``quant.weight_only``).
+    snapped to per-channel int8 grids (``quant.weight_only``); ``exported``
+    loads the experiment's ``model.spef`` (``apps.export``) onto ``device``
+    as a ``deploy.ExportedEngine`` and ignores ``model``.
     """
     import os
 
     if variant == "exported":
-        raise NotImplementedError("the .spef export is not ported yet (ROADMAP §A, item 10)")
+        from spef_tpu_torch.deploy import load_exported
+
+        return load_exported(os.path.join(exp_dir, "model.spef"), device=device)
     if variant in ("crop-refine", "crop-refine-w8"):
         import json
 

@@ -20,7 +20,8 @@ import tempfile
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["SOURCES", "build_all", "load_library", "nvcc_path", "check"]
+__all__ = ["SOURCES", "build_all", "load_library", "nvcc_path", "check", "refuse_tracing",
+           "KernelTraceError"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -105,6 +106,26 @@ def load_library(name: str) -> ctypes.CDLL:
                 lib.spef_error_string.restype = ctypes.c_char_p
                 _loaded[name] = lib
     return lib
+
+
+class KernelTraceError(RuntimeError):
+    """A hand kernel was reached while ``torch.export`` (or ``torch.compile``)
+    traced a function."""
+
+
+def refuse_tracing(what: str, x) -> None:
+    """Raise before a launch that a tracer is recording: a traced tensor has
+    no memory (its ``data_ptr`` is not an address), so the launch would
+    read and write nothing real and the trace would record no kernel."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    if torch.compiler.is_compiling() or isinstance(x, FakeTensor):
+        raise KernelTraceError(
+            f"{what}: a hand-written CUDA kernel cannot be traced by torch.export (a ctypes "
+            f"launch on a tensor with no memory); export a forward without hand kernels "
+            f"(float, qat, int8 = build_int8_forward, weight_only), or register K1-K4 as "
+            f"torch.library custom ops with fake implementations (ROADMAP §A, item 10)")
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -184,6 +184,7 @@ def fused_stem(
         return fused_stem_plain(images, w, mult, bias, inv_step, qmax, packed)
     if images.device.type != "cuda":
         raise ValueError(f"fused_stem: unsupported device {images.device}")
+    _build.refuse_tracing("fused_stem", images)
     if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
         raise ValueError(f"fused_stem: images must be uint8 (B, H, W, 3), got "
                          f"{images.dtype} {tuple(images.shape)}")
@@ -665,6 +666,7 @@ def fused_mbconv(
         return fused_mbconv_plain(x, wts, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mbconv: unsupported device {x.device}")
+    _build.refuse_tracing("fused_mbconv", x)
     _check_mbconv(x, wts, stride, in_unsigned, use_residual, ratio_out)
     dw_grid = inv_d is not None
     if "wblob" not in wts:

@@ -320,6 +320,7 @@ def int8_matmul_requant(
         return int8_matmul_requant_plain(x, w, mult, bias, packed=packed, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul_requant: unsupported device {x.device}")
+    _build.refuse_tracing("int8_matmul_requant", x)
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"int8_matmul_requant: shapes {tuple(x.shape)} x {tuple(w.shape)}")
     m, k = x.shape
@@ -454,6 +455,7 @@ def int8_depthwise3x3(
         return int8_depthwise3x3_plain(x, w, mult, bias, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"int8_depthwise3x3: unsupported device {x.device}")
+    _build.refuse_tracing("int8_depthwise3x3", x)
     if x.dim() != 4 or stride not in (1, 2):
         raise ValueError(f"int8_depthwise3x3: x {tuple(x.shape)}, stride {stride}")
     b, h, wd, c = x.shape

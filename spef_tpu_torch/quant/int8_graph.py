@@ -81,8 +81,11 @@ def mm_weights(layer: Dict[str, Any], in_step: float, tensor: TensorFn) -> Dict[
 def true_div(y: torch.Tensor, d: float) -> torch.Tensor:
     """``y / d`` as an IEEE division.  On CUDA, PyTorch turns division by a
     Python scalar into a multiply by its reciprocal, which can differ by an
-    ulp; a 0-d device tensor keeps the division."""
-    return y / torch.tensor(d, dtype=torch.float32, device=y.device)
+    ulp; a 0-d device tensor keeps the division.  ``torch.full`` fills it
+    on the device (the same float32 value): ``torch.tensor`` would copy it
+    from the host and synchronize, which keeps a stream of forwards from
+    being dispatched ahead (``serving.serve_stream``)."""
+    return y / torch.full((), d, dtype=torch.float32, device=y.device)
 
 
 def emit_unsigned(y: torch.Tensor, step: float, qmax: float) -> torch.Tensor:

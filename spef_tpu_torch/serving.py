@@ -1,21 +1,42 @@
 """Serving runtime: batched pose inference on one device.
 
-Counterpart of ``spef_tpu.serving.PoseServer`` without the mesh: a fixed-size
-batch window (requests are zero-padded up to it, so every call runs the same
-shapes), and latency statistics.  Batches in flight on several CUDA streams
-are in ROADMAP §A, deploy and serve.
+Counterpart of ``spef_tpu.serving`` without the mesh:
+
+  * :class:`PoseServer`: a fixed-size batch window (requests are zero-padded
+    up to it, so every call runs the same shapes), latency statistics, and
+    on ``cuda`` a page-locked (pinned) host buffer of the window's shape,
+    allocated once, through which each request is copied to the card
+    asynchronously;
+  * :func:`serve_stream`: pipelined streaming inference over an iterator of
+    frame batches, ``depth`` batches in flight (JAX's dispatch ahead, block
+    late).  On CUDA that overlap needs the host-to-device copy to be
+    asynchronous, so the stream keeps a ring of ``depth`` pinned buffers,
+    filled by a staging thread, and issues each copy on a side stream that
+    the compute stream waits on.
+
+On ``device="cpu"`` neither pins memory nor uses streams: that is the path
+the caller asked for.  On ``cuda`` a failure to pin or to launch raises;
+nothing falls back to a pageable copy.
 """
 
 from __future__ import annotations
 
 import collections
+import queue
+import threading
 import time
-from typing import Callable, Dict, Tuple, Union
+from typing import Callable, Dict, Iterable, Iterator, Tuple, Union
 
 import numpy as np
 import torch
 
-__all__ = ["PoseServer"]
+__all__ = ["PoseServer", "serve_stream"]
+
+
+def _pinned(shape, dtype: np.dtype) -> torch.Tensor:
+    """A page-locked host tensor; ``pin_memory`` raises where it cannot pin."""
+    return torch.empty(tuple(shape), dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                       pin_memory=True)
 
 
 class PoseServer:
@@ -33,6 +54,9 @@ class PoseServer:
         self.max_batch = max_batch
         self.device = torch.device(device)
         self._latencies: collections.deque = collections.deque(maxlen=1000)
+        # On cuda, the window's pinned staging buffer of uint8 frames.
+        self._staging = (_pinned((max_batch, *self.img_shape), np.uint8)
+                         if self.device.type == "cuda" else None)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -47,18 +71,36 @@ class PoseServer:
         self._sync()
         return time.perf_counter() - t0
 
+    def _to_device(self, images: np.ndarray) -> torch.Tensor:
+        """The request padded to the window, on the device.  On ``cuda``:
+        copied into the pinned buffer with its tail zeroed (the pad), then
+        sent with ``non_blocking=True``; ``predict`` synchronizes before the
+        buffer is written again."""
+        n = images.shape[0]
+        if self.device.type != "cuda":
+            if n < self.max_batch:
+                pad = np.zeros((self.max_batch - n, *self.img_shape), images.dtype)
+                images = np.concatenate([images, pad])
+            return torch.from_numpy(np.ascontiguousarray(images))
+        if images.dtype != np.uint8:
+            raise TypeError(f"the pinned staging buffer holds uint8 frames, got {images.dtype}")
+        host = self._staging.numpy()
+        host[:n] = images
+        host[n:] = 0
+        return self._staging.to(self.device, non_blocking=True)
+
     def predict(self, images: np.ndarray) -> Tuple[Dict[str, np.ndarray], float]:
         """Serve one request (any batch size <= max_batch): pads to the
-        window, returns host numpy results and the latency in ms (host to
-        device copy plus device work, as the JAX server measures it)."""
+        window, returns host numpy results and the latency in ms.  The
+        latency is JAX's: the host clock from before the copy (here the
+        staging copy into the pinned buffer, which also writes the pad) to
+        after the results are ready on the device."""
+        images = np.asarray(images)
         n = images.shape[0]
         if n > self.max_batch:
             raise ValueError(f"batch {n} > serving window {self.max_batch}")
-        if n < self.max_batch:
-            pad = np.zeros((self.max_batch - n, *self.img_shape), images.dtype)
-            images = np.concatenate([images, pad])
         t0 = time.perf_counter()
-        out = self.predict_fn(torch.from_numpy(np.ascontiguousarray(images)).to(self.device))
+        out = self.predict_fn(self._to_device(images))
         self._sync()
         latency_ms = (time.perf_counter() - t0) * 1e3
         self._latencies.append(latency_ms)
@@ -73,3 +115,121 @@ class PoseServer:
             "requests": len(self._latencies),
             "devices": 1,
         }
+
+
+class _Stager:
+    """A thread that copies each host batch into the next of a ring of
+    ``depth`` pinned buffers, ahead of the consumer: it writes a buffer
+    again only after the event of the copy that last read it (handed back
+    by :meth:`release`) has completed.  The caller's thread is free to
+    dispatch the forwards meanwhile (numpy's copy releases the GIL), and it
+    blocks wherever a predict function synchronizes with the card."""
+
+    def __init__(self, batches: Iterable[np.ndarray], depth: int):
+        self._ring = [None] * depth
+        self._free = [queue.Queue() for _ in range(depth)]
+        for q in self._free:
+            q.put(None)  # no copy has read the buffer yet
+        self._filled: queue.Queue = queue.Queue()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, args=(iter(batches),), daemon=True)
+        self._thread.start()
+
+    def _run(self, batches: Iterator[np.ndarray]) -> None:
+        try:
+            for i, batch in enumerate(batches):
+                slot = i % len(self._ring)
+                copied = self._free[slot].get()
+                if self._stop.is_set():
+                    return
+                if copied is not None:
+                    copied.synchronize()
+                batch = np.asarray(batch)
+                buf = self._ring[slot]
+                if (buf is None or tuple(buf.shape) != batch.shape
+                        or buf.numpy().dtype != batch.dtype):
+                    buf = self._ring[slot] = _pinned(batch.shape, batch.dtype)
+                buf.numpy()[...] = batch
+                self._filled.put((slot, buf))
+            self._filled.put(None)
+        except Exception as e:  # raised again in the consumer's thread by next()
+            self._filled.put(e)
+
+    def next(self):
+        """(slot, pinned buffer) of the next batch, or None at the end."""
+        item = self._filled.get()
+        if isinstance(item, Exception):
+            raise item
+        return item
+
+    def release(self, slot: int, copied: "torch.cuda.Event") -> None:
+        """The copy out of ``slot``'s buffer was issued; ``copied`` follows it."""
+        self._free[slot].put(copied)
+
+    def close(self) -> None:
+        self._stop.set()
+        for q in self._free:
+            q.put(None)
+        self._thread.join(timeout=60)
+
+
+def serve_stream(
+    predict_fn: Callable,
+    batches: Iterable[np.ndarray],
+    depth: int = 2,
+    device: Union[str, torch.device] = "cuda",
+) -> Iterator[Dict[str, torch.Tensor]]:
+    """Pipelined streaming inference: keep ``depth`` batches in flight and
+    yield each batch's pose dict (device tensors, computed) in order.
+
+    On ``cuda`` a staging thread (:class:`_Stager`) copies the batches into
+    a ring of ``depth`` pinned buffers; each is sent to the card on a side
+    stream, and the forward runs on the current stream after it waits on
+    that copy's event.  So the host's staging copy of the next batches and
+    their transfers overlap the forward of the one before, even where the
+    predict function synchronizes the host (the decode's ``eigh``).
+    """
+    if depth < 1:
+        raise ValueError(f"depth must be at least 1, got {depth}")
+    device = torch.device(device)
+    pending: collections.deque = collections.deque()
+    if device.type != "cuda":
+        for batch in batches:
+            pending.append(predict_fn(torch.from_numpy(np.ascontiguousarray(batch)).to(device)))
+            if len(pending) >= depth:
+                yield pending.popleft()
+        while pending:
+            yield pending.popleft()
+        return
+
+    compute = torch.cuda.current_stream(device)
+    copy_stream = torch.cuda.Stream(device)
+    stager = _Stager(batches, depth)
+    try:
+        while True:
+            item = stager.next()
+            if item is None:
+                break
+            slot, buf = item
+            with torch.cuda.stream(copy_stream):
+                x = buf.to(device, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(copy_stream)
+            stager.release(slot, copied)
+            compute.wait_event(copied)
+            # x was allocated on the copy stream and is read on the compute stream.
+            x.record_stream(compute)
+            out = predict_fn(x)
+            done = torch.cuda.Event()
+            done.record(compute)
+            pending.append((out, done))
+            if len(pending) >= depth:
+                out, done = pending.popleft()
+                done.synchronize()
+                yield out
+        while pending:
+            out, done = pending.popleft()
+            done.synchronize()
+            yield out
+    finally:
+        stager.close()

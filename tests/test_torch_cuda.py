@@ -590,3 +590,151 @@ def test_device_resident_loader_matches_the_host_loader(dev, tmp_path):
             assert torch.equal(got["images"].cpu(), torch.from_numpy(want["images"]))
             for k in ("ori", "pos", "mask"):
                 np.testing.assert_array_equal(got[k], want[k])
+
+
+# ---------------------------------------------------------------------------
+# Deploy and serve on the card
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLAGSHIP_GRAPH = os.path.join(REPO, "spef_tpu_torch", "assets",
+                              "flagship_boundary_int8_graph.pkl")
+
+
+def _flagship_fused_predict(dev):
+    from spef_tpu_torch.codec.facade import SPEUtils
+    from spef_tpu_torch.data.camera import SPEED_CAMERA
+    from spef_tpu_torch.engine import build_predict_fn
+    from spef_tpu_torch.quant.int8_fused import build_fused_forward
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph
+
+    utils = SPEUtils.create(SPEED_CAMERA, ori_mode="classification", pos_mode="classification",
+                            device=dev)
+    fwd = build_fused_forward(load_int8_graph(FLAGSHIP_GRAPH), backend="cuda", device=dev)
+    return build_predict_fn(None, utils, forward_fn=fwd), utils
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+def test_serve_stream_pinned_ring_equals_predict(dev, depth):
+    """``serve_stream`` on the fused executor over 8 distinct batches of 16
+    frames: each result, in order, is ``PoseServer.predict``'s on its own
+    batch bit for bit (a pinned buffer overwritten while its copy was in
+    flight would give another batch's frames), and the kernels launched 19
+    times a forward."""
+    from spef_tpu_torch.serving import PoseServer, serve_stream
+
+    predict, _ = _flagship_fused_predict(dev)
+    batches = [np.random.RandomState(100 + i).randint(0, 256, (16, 240, 384, 3), np.uint8)
+               for i in range(8)]
+    counters = (fused_stem, fused_mbconv, int8_matmul_requant)
+    before = [f.launches for f in counters]
+    outs = [{k: v.cpu().numpy() for k, v in out.items()}
+            for out in serve_stream(predict, iter(batches), depth=depth, device=dev)]
+    assert [f.launches - n for f, n in zip(counters, before)] == [8, 8 * 17, 8]
+    server = PoseServer(predict, (240, 384, 3), max_batch=16, device=dev)
+    assert len(outs) == len(batches)
+    for i, (batch, out) in enumerate(zip(batches, outs)):
+        want, _ = server.predict(batch)
+        for k in want:
+            np.testing.assert_array_equal(out[k], want[k], err_msg=f"batch {i} {k}")
+    assert server._staging.is_pinned()
+
+
+def test_pose_server_pinned_staging_pads_on_the_card(dev):
+    """A request of 5 frames through the window of 16: the pinned buffer's
+    tail is zeroed (a stale tail would move no output of these 5 frames,
+    so a full request of other frames goes first), and the result is the
+    unpadded call's."""
+    from spef_tpu_torch.serving import PoseServer
+
+    predict, _ = _flagship_fused_predict(dev)
+    server = PoseServer(predict, (240, 384, 3), max_batch=16, device=dev)
+    server.predict(np.full((16, 240, 384, 3), 255, np.uint8))
+    frames = np.random.RandomState(7).randint(0, 256, (5, 240, 384, 3), np.uint8)
+    got, ms = server.predict(frames)
+    assert ms > 0 and got["ori"].shape == (5, 4)
+    assert not server._staging.numpy()[5:].any()
+    padded = np.concatenate([frames, np.zeros((11, 240, 384, 3), np.uint8)])
+    want = predict(torch.from_numpy(padded).to(dev))
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k][:5].cpu().numpy(), err_msg=k)
+
+
+def _f32_predict(where):
+    from spef_tpu_torch.codec.facade import SPEUtils
+    from spef_tpu_torch.data.camera import DSPEED_CAMERA
+    from spef_tpu_torch.engine import build_predict_fn
+    from spef_tpu_torch.models.wrapper import import_model
+
+    utils = SPEUtils.create(DSPEED_CAMERA, ori_mode="classification", n_ori_bins_per_dim=4,
+                            pos_mode="classification", n_pos_bins_per_dim=4, device=where)
+    model = import_model("small_mobile_q", "ursonet_q", quantization=False,
+                         ori_mode="classification", n_ori_bins=utils.orientation.n_bins,
+                         pos_mode="classification", n_pos_bins=utils.position.n_bins,
+                         img_size=(48, 64), seed=3, device=where)
+    return build_predict_fn(model, utils)
+
+
+@pytest.mark.parametrize("exported_on,served_on", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_artifact_moves_between_the_card_and_the_cpu(dev, tmp_path, exported_on, served_on):
+    """An artifact traced on one device served on the other
+    (``move_to_device_pass``): the live float32 pipeline's soft-class PDFs
+    and positions there within 1e-5 (float32 convolutions, TF32 off)."""
+    from spef_tpu_torch.deploy import export_predict, load_exported
+    from spef_tpu_torch.quant.int8_model import f32_convs
+
+    path = str(tmp_path / "model.spef")
+    meta = export_predict(_f32_predict(exported_on), 4, (48, 64), path, device=exported_on)
+    assert meta["platforms"] == [exported_on]
+    engine = load_exported(path, device=served_on)
+    assert engine.device.type == served_on
+    frames = np.random.RandomState(2).randint(0, 256, (3, 48, 64, 3), np.uint8)
+    got, _ = engine.predict(frames)
+    padded = torch.from_numpy(np.concatenate([frames, np.zeros((1, 48, 64, 3), np.uint8)]))
+    with f32_convs():
+        want = _f32_predict(served_on)(padded.to(served_on))
+    for k in ("ori_soft", "pos_soft", "pos"):
+        assert got[k].device.type == served_on
+        torch.testing.assert_close(got[k], want[k][:3], rtol=1e-5, atol=1e-5)
+
+
+def test_exported_engine_runs_without_tf32_and_restores_it(dev, tmp_path):
+    """With TF32 on around it, the engine's float32 convolutions still give
+    the TF32-off live result (within 1e-5; TF32 moves them by about 1e-3),
+    and the caller's switches are as they were after the call."""
+    from spef_tpu_torch.deploy import export_predict, load_exported
+    from spef_tpu_torch.quant.int8_model import f32_convs
+
+    predict = _f32_predict(dev)
+    path = str(tmp_path / "model.spef")
+    export_predict(predict, 4, (48, 64), path, device=dev)
+    engine = load_exported(path)
+    frames = torch.from_numpy(
+        np.random.RandomState(3).randint(0, 256, (4, 48, 64, 3), np.uint8)).to(dev)
+    with f32_convs():
+        want = predict(frames)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = engine(frames)
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    for k in ("ori_soft", "pos_soft", "pos"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-5)
+
+
+def test_export_refuses_a_forward_that_launches_hand_kernels(dev, tmp_path):
+    """The fused executor's forward cannot be traced: ``export_predict``
+    raises naming the ROADMAP item, writes no file and launches nothing."""
+    from spef_tpu_torch.deploy import export_predict
+    from spef_tpu_torch.ops._build import KernelTraceError
+
+    predict, _ = _flagship_fused_predict(dev)
+    counters = (fused_stem, fused_mbconv, int8_matmul_requant)
+    before = [f.launches for f in counters]
+    path = tmp_path / "fused.spef"
+    with pytest.raises(KernelTraceError, match="ROADMAP §A, item 10"):
+        export_predict(predict, 4, (240, 384), str(path), device=dev)
+    assert not path.exists()
+    assert [f.launches for f in counters] == before

@@ -117,8 +117,10 @@ def test_exported_and_crop_refine_variants_are_not_ported_yet(qat_experiment, tm
     exp, _ = qat_experiment
     (tmp_path / "model.spef").write_bytes(b"")
     assert discover_engine_variants(str(tmp_path)) == ["float", "exported"]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_engine_variant(exp, None, _utils(), "exported", device="cpu")
+    # exported is ported (ROADMAP §A, item 10; tests/test_torch_deploy.py): a
+    # model.spef that is not an artifact is refused by the loader.
+    with pytest.raises(ValueError, match="not a .spef artifact"):
+        build_engine_variant(str(tmp_path), None, _utils(), "exported", device="cpu")
     # crop-refine is ported (ROADMAP §A, item 8; tests/test_torch_crop_refine.py):
     # an experiment without a crop_refine.json registry has no fine model, as in JAX.
     for variant in ("crop-refine", "crop-refine-w8"):
