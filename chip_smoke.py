@@ -186,7 +186,36 @@ each printed on its own lines; any failure exits nonzero:
      forward's logits against the plain backend's (0.3); (f)
      ``apps.nn_stats`` on the flagship's shape, its totals; the ``kernels``
      line's ``launches_deploy_path`` and ``deploy_path_check``;
- 15. the last line: ``{"ok": true, "device": {...}}``.
+ 15. the host data path, while phase 10's set is on disk: first a line that
+     names what the native JPEG / PNG loader (``spef_tpu_torch.native``)
+     lacks on this host, if anything; (a) the committed JPEG frames
+     (``assets/speed_jpeg/``, 8 at SPEED's 1920x1200, their sha256 held to
+     ``assets/speed_jpeg_ref.json``): where the loader builds, decoded at
+     240x384 and held to JAX's decoded batch (``speed_jpeg_ref.npz``; the
+     mismatch count printed, both libjpeg versions where it is not 0), its
+     resize held to the numpy twin, and ``apps.serve --frames-dir`` run on
+     them (float and ``fused``); where it does not, nothing decodes the
+     JPEGs and the reference's decoded batch is served instead; the float
+     flagship's poses within phase 3's gates of JAX's float32 ones (the
+     float32 model on the card: soft PDFs within 1e-4, positions 1e-3 m;
+     the served bf16 model: 10 deg, 0.5 m); the ``fused`` executor's poses
+     against them printed (int8 against float: not gated), its logits
+     within 0.3 of its plain backend, its kernels (K3, K4, K1) at this
+     batch held against their plain versions, its launches counted; (b)
+     the decoder the loaders chose here (phase 8's split went through it);
+     (c) ``python -m spef_tpu_torch.apps.train`` with the flagship's config
+     as it is (``ROT_AUGMENT`` on, no ``--device-augment``: the host warp
+     in the loader, ``native/warp.cpp`` where g++ is present), one epoch at
+     batch 64: step ms p50, frames/s against phase 10's device
+     augmentation, the host warp's ms a frame (in the loader's threads, and
+     alone on one thread); then one
+     step with and without ``--data-parallel`` (world size 1, cuDNN
+     deterministic): the two written checkpoints identical, byte for byte;
+     (d) the host synchronizations of one ``predict`` (one: the decode's
+     ``eigh``), and the weight-only forward (bf16 products with float32
+     sums) on the card against the CPU's within 0.3 logit; the ``kernels``
+     line's ``launches_host_path`` and ``host_path_check``;
+ 16. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, where ``torch.cuda.is_available()`` is
 false or the package is missing.
@@ -1583,12 +1612,13 @@ def _train_cli(torch, np, dev, still, root):
     _check_pose(np, pose, TRAIN_BATCH)
     log(f"[train:cli] the trained experiment served by apps.serve: one batch of "
         f"{TRAIN_BATCH} test frames, {ms:.2f} ms")
-    return cfg
+    return cfg, runs["streaming loader"]["epochs"][-1]["frames_per_s"]
 
 
 def phase_training(torch, np, dev, root):
     """Phase 10: the flagship trained on the card at full width.  Returns
-    the dataset and the config the deployment build uses."""
+    the dataset, the config the deployment build uses and the streaming
+    epoch's frames/s with the device augmentation."""
     from spef_tpu_torch.data.synthetic import create_synthetic_dataset, render_workers
 
     workers = render_workers()
@@ -1603,10 +1633,10 @@ def phase_training(torch, np, dev, root):
     t1 = time.perf_counter()
     _learning_gate(torch, np, dev, still)
     t2 = time.perf_counter()
-    cfg = _train_cli(torch, np, dev, still, root)
+    cfg, device_augment_fps = _train_cli(torch, np, dev, still, root)
     log(f"[train] seconds: parity gate {t1 - t0:.2f}, learning gate {t2 - t1:.2f}, the CLI "
         f"(four runs, five epochs, evaluations, serve) {time.perf_counter() - t2:.2f}")
-    return still, cfg
+    return still, cfg, device_augment_fps
 
 
 def phase_deploy_build(torch, np, dev, still, cfg, root):
@@ -1904,12 +1934,25 @@ def _recorded_esa(exp, name):
         return json.load(f)["scores"]["test"]["esa"][0]
 
 
+def _source_name(torch, filename):
+    """``filename`` as ``torch/<path>`` inside torch's install, as its path
+    from the repo root inside the repo, else as it is."""
+    path = os.path.abspath(filename)
+    torch_dir = os.path.dirname(os.path.abspath(torch.__file__))
+    if path.startswith(torch_dir + os.sep):
+        return "torch/" + os.path.relpath(path, torch_dir)
+    if path.startswith(REPO + os.sep):
+        return os.path.relpath(path, REPO)
+    return path
+
+
 def _kernels_and_syncs(torch, fn):
     """(CUDA kernels one call of ``fn`` launches by ``torch.profiler``, copies
     and memsets left out, or None where the profiler sees no device
     activity; the host synchronizations the call makes under
     ``torch.cuda.set_sync_debug_mode("warn")``, counted by the source line
-    that made them)."""
+    that made them: ``torch/<path>:<line>`` inside torch's install, the path
+    from the repo root inside the repo, else the full path)."""
     import warnings
 
     from torch.profiler import ProfilerActivity, profile
@@ -1933,7 +1976,7 @@ def _kernels_and_syncs(torch, fn):
     where = {}
     for w in caught:
         if "synchroniz" in str(w.message).lower():
-            key = f"{os.path.basename(w.filename)}:{w.lineno}"
+            key = f"{_source_name(torch, w.filename)}:{w.lineno}"
             where[key] = where.get(key, 0) + 1
     return (kernels or None), where
 
@@ -2818,6 +2861,300 @@ def phase_bench_construction(torch, np, dev):
         f"(host clock over {iters} batches on the card)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the host data path
+# ---------------------------------------------------------------------------
+
+JPEG_DIR = os.path.join(REPO, "spef_tpu_torch", "assets", "speed_jpeg")
+JPEG_REF = os.path.join(REPO, "spef_tpu_torch", "assets", "speed_jpeg_ref.npz")
+JPEG_RECORD = os.path.join(REPO, "spef_tpu_torch", "assets", "speed_jpeg_ref.json")
+F32_SOFT_TOL, F32_POS_TOL = 1e-4, 1e-3  # phase 3's: a float32 forward on two devices
+SERVED_DEG_TOL, SERVED_M_TOL = 10.0, 0.5  # phase 3's: the served bf16 model against float32
+JPEG_LINE = r"^(\S+\.(?:png|jpg)): q=(\[[^\]]*\]) t=(\[[^\]]*\])$"
+DP_FRAMES = 64  # one step at the flagship's batch
+# The weight-only forward on the card against the CPU's on the 8 JPEG frames:
+# read at 0.03404 (float32 sums in another order); every layer's float32 sum
+# rounded to bf16 before the epilogue moves them by 0.096-0.117 on the CPU
+# (tests/test_torch_host_repairs.py holds that above this limit).
+WEIGHT_ONLY_LOGIT_TOL = 0.06
+
+
+def _sha256(path):
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def _libjpeg_here():
+    """The libjpeg version macros of the headers g++ finds, or why not."""
+    import re
+
+    proc = subprocess.run(["g++", "-dM", "-E", "-x", "c++", "-"],
+                          input="#include <cstdio>\n#include <jpeglib.h>\n",
+                          capture_output=True, text=True)
+    found = re.findall(r"#define (JPEG_LIB_VERSION|LIBJPEG_TURBO_VERSION) (\S+)", proc.stdout)
+    return ", ".join(f"{k} {v}" for k, v in sorted(found)) or "no jpeglib.h"
+
+
+def _served_lines(np, argv):
+    """``apps.serve`` run with ``argv`` (its ``main``): (its output, {frame:
+    (q, t)} of the lines it printed)."""
+    import contextlib
+    import re
+
+    from spef_tpu_torch.apps import serve
+
+    tee = _Tee()
+    with contextlib.redirect_stdout(tee):
+        serve.main(argv)
+    rows = {}
+    for line in tee.text().splitlines():
+        m = re.match(JPEG_LINE, line)
+        if m:
+            rows[m.group(1)] = tuple(np.array(json.loads(m.group(i))) for i in (2, 3))
+    return tee.text(), rows
+
+
+def _host_jpeg(torch, np, dev, failed):
+    """(a) The committed JPEG frames; returns (this path's launches, its
+    kernel checks)."""
+    from spef_tpu_torch import native
+    from spef_tpu_torch.codec.facade import SPEUtils
+    from spef_tpu_torch.data.camera import SPEED_CAMERA
+    from spef_tpu_torch.engine import build_predict_fn
+    from spef_tpu_torch.models.wrapper import import_model
+    from spef_tpu_torch.quant import int8_fused
+    from spef_tpu_torch.quant.int8_fused import build_fused_forward
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph
+
+    with open(JPEG_RECORD) as f:
+        record = json.load(f)
+    names = sorted(record["frames"])
+    paths = [os.path.join(JPEG_DIR, n) for n in names]
+    assert {n: _sha256(p) for n, p in zip(names, paths)} == record["frames"]
+    assert _sha256(JPEG_REF) == record["npz"]
+    with np.load(JPEG_REF) as z:
+        ref = {k: z[k] for k in z.files}
+    lacking = native.missing()
+    if lacking:
+        frames = ref["decoded"]
+        log(f"[host:jpeg] not run: the native loader cannot be built on this host (missing "
+            f"{', '.join(lacking)}), so nothing here decodes the {len(names)} JPEG frames; the "
+            f"reference's decoded batch (JAX's native loader on the CPU, "
+            f"{record['decode']['libjpeg']}) is served instead")
+    else:
+        t0 = time.perf_counter()
+        frames = native.load_batch(paths, 240, 384)
+        ms = (time.perf_counter() - t0) * 1e3
+        mis = int((frames != ref["decoded"]).sum())
+        log(f"[host:jpeg] {len(names)} JPEG frames 1920x1200 -> 240x384 by the native loader "
+            f"({ms:.1f} ms, host clock): {mis} of {frames.size} values differ from JAX's "
+            f"decoded batch")
+        if mis:
+            log(f"[host:jpeg] libjpeg here: {_libjpeg_here()}; the reference's: "
+                f"{record['decode']['libjpeg']}")
+            failed.append(f"JPEG decode: {mis} values differ from JAX's")
+        full = native.load_batch(paths, 1200, 1920)
+        twin = np.stack([native.resize_bilinear_plain(f, 240, 384) for f in full])
+        tmis = int((twin != frames).sum())
+        log(f"[host:jpeg] the native resize against its numpy twin: {tmis} mismatches")
+        if tmis:
+            failed.append(f"native resize: {tmis} values differ from the numpy twin")
+
+    # The float32 flagship on the card against JAX's float32 on these frames.
+    model = import_model(params_path=os.path.join(FLAGSHIP, "model", "parameters.msgpack"),
+                         ori_mode="classification", n_ori_bins=1232, pos_mode="classification",
+                         n_pos_bins=1000, device=dev, compute_dtype=torch.float32)
+    utils = SPEUtils.create(SPEED_CAMERA, ori_mode="classification", pos_mode="classification",
+                            device=dev)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        f32 = {k: v.cpu().numpy() for k, v in
+               build_predict_fn(model, utils)(torch.from_numpy(frames).to(dev)).items()}
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    d_soft = max(float(np.abs(f32[k] - ref[f"{k}_f32"]).max()) for k in ("ori_soft", "pos_soft"))
+    d_pos = float(np.abs(f32["pos"] - ref["pos_f32"]).max())
+    log(f"[host:jpeg] float32 flagship on the card vs JAX's float32: max |d soft| {d_soft:.3e} "
+        f"(at most {F32_SOFT_TOL}), max |d pos| {d_pos:.3e} m (at most {F32_POS_TOL})")
+    if not (d_soft < F32_SOFT_TOL and d_pos < F32_POS_TOL):
+        failed.append(f"float32 flagship: {d_soft}, {d_pos} from JAX's")
+
+    launches = checks = None
+    for label, extra in (("float", []), ("fused", ["--int8-graph", ASSET, "--int8-executor",
+                                                     "fused"])):
+        argv = ["--experiment", FLAGSHIP, *extra, "--batch", str(len(names))]
+        server, _ = _serve(torch, argv)
+        server.warmup()
+        if label == "fused":
+            _reset_counters()
+        pose, ms = server.predict(frames)
+        if label == "fused":
+            launches = _read_counters("host:jpeg fused", 1, FUSED_LAUNCHES)
+        if not lacking:
+            out, rows = _served_lines(np, argv + ["--frames-dir", JPEG_DIR])
+            assert "Decoder: native" in out and sorted(rows) == names, sorted(rows)
+            d_q = max(float(np.abs(rows[n][0] * np.sign(rows[n][0] @ pose["ori"][i])
+                                   - pose["ori"][i]).max()) for i, n in enumerate(names))
+            log(f"[host:jpeg] apps.serve --frames-dir {label}: {len(rows)} lines, max |d q| "
+                f"{d_q:.2e} from the same frames' predict (print precision)")
+            if not d_q <= 1.01e-4:
+                failed.append(f"serve --frames-dir {label}: printed poses {d_q} from predict")
+        deg, dist = _pose_gap(np, pose, {"ori": ref["ori_f32"], "pos": ref["pos_f32"]})
+        gate = (f"at most {SERVED_DEG_TOL}, {SERVED_M_TOL}" if label == "float" else
+                "int8 against float, not gated: its kernels are held below")
+        log(f"[host:jpeg] {label} served on the {len(names)} frames ({ms:.2f} ms): poses vs "
+            f"JAX's float32, at most {deg:.3f} deg and {dist:.4f} m ({gate})")
+        if label == "float" and not (deg < SERVED_DEG_TOL and dist < SERVED_M_TOL):
+            failed.append(f"{label}: poses {deg} deg, {dist} m from JAX's float32")
+    graph = load_int8_graph(ASSET)
+    checks = _hold_path(
+        torch, "host", f"fused, the {len(names)} frames", int8_fused, FUSED_LAUNCHES,
+        lambda backend: build_fused_forward(graph, backend=backend, device=dev), frames, dev,
+        failed)
+    return launches, checks, frames
+
+
+def _dp_subset(still, root):
+    """A set of the first ``DP_FRAMES`` frames of each of ``still``'s splits
+    (one step, one batch each to evaluate); the images linked."""
+    sub = os.path.join(root, "dp_subset", "still")
+    for split in ("train", "valid", "test"):
+        os.makedirs(os.path.join(sub, split))
+        os.symlink(os.path.join(still, split, "images"), os.path.join(sub, split, "images"))
+        with open(os.path.join(still, split, "pose.json")) as f:
+            labels = json.load(f)[:DP_FRAMES]
+        with open(os.path.join(sub, split, "pose.json"), "w") as f:
+            json.dump(labels, f)
+    return sub
+
+
+def _host_training(torch, np, still, root, device_augment_fps, failed):
+    """(c) The host warp in ``apps.train``, then ``--data-parallel`` at
+    world size 1."""
+    import contextlib
+
+    from spef_tpu_torch.apps import train as train_app
+
+    cfg = _flagship_config(still, os.path.join(root, "exp_host_warp.yaml"))
+    tee = _Tee()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        result = train_app.main(["--config", cfg, "--out", os.path.join(root, "host_warp"),
+                                 "--epochs", "1"])["exp_host_warp"]
+    assert result is not None, "apps.train with the host warp failed (traceback above)"
+    assert "yaw-rotation warp: host" in tee.text()
+    epoch, warp = result["epochs"][0], result["host_warp"]
+    log(f"[host:train] apps.train, ROT_AUGMENT on, no --device-augment (the host warp, decoder "
+        f"{result['decoder']}): {time.perf_counter() - t0:.2f} s; {epoch['batches']} steps, "
+        f"step p50 {epoch['step_ms_p50']:.3f} ms (CUDA events), {epoch['frames_per_s']:.1f} "
+        f"frames/s against {device_augment_fps:.1f} with the device augmentation (phase 10, "
+        f"streaming loader), steps {100 * epoch['step_share']:.1f}% of the epoch; the host warp "
+        f"({warp['warp']}) {warp['warped']} of {warp['frames']} frames, "
+        f"{1e3 * warp['seconds'] / max(warp['warped'], 1):.3f} ms a warped frame (host clock, "
+        f"summed over the loader's threads)")
+
+    from spef_tpu_torch.data.augment_host import host_yaw_rotation, warp_backend
+    from spef_tpu_torch.data.camera import SPEED_CAMERA
+
+    frame = np.random.RandomState(0).randint(0, 256, (240, 384, 3), np.uint8)
+    ori, pos = np.float32([1, 0, 0, 0]), np.float32([0, 0, 10])
+    t0 = time.perf_counter()
+    for i in range(32):
+        host_yaw_rotation(frame, ori, pos, SPEED_CAMERA, -40.0 + 2.5 * i)
+    log(f"[host:train] the host warp alone ({warp_backend()}), one thread: "
+        f"{(time.perf_counter() - t0) / 32 * 1e3:.3f} ms a 240x384 frame (host clock, 32 "
+        f"frames)")
+
+    sub = _dp_subset(still, root)
+    cfg = _flagship_config(sub, os.path.join(root, "exp_dp.yaml"))
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    written = {}
+    try:
+        for label, flag in (("without", []), ("with", ["--data-parallel"]),
+                            ("without, again", [])):
+            out = os.path.join(root, "dp_" + label.replace(", ", "_"))
+            tee = _Tee()
+            with contextlib.redirect_stdout(tee):
+                result = train_app.main(["--config", cfg, "--out", out, "--epochs", "1"]
+                                        + flag)["exp_dp"]
+            assert result is not None and result["epochs"][0]["batches"] == 1
+            assert "Data-parallel training over" not in tee.text()
+            with open(os.path.join(out, "exp_dp", "model", "parameters.msgpack"), "rb") as f:
+                written[label] = f.read()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    same = written["with"] == written["without"]
+    log(f"[host:train] one step of {DP_FRAMES} with --data-parallel (world size 1) and without, "
+        f"cuDNN deterministic: checkpoints {'identical' if same else 'DIFFERENT'} byte for byte "
+        f"(two runs without the flag: "
+        f"{'identical' if written['without'] == written['without, again'] else 'different'})")
+    if not same:
+        failed.append("--data-parallel at world size 1 changed the step")
+
+
+def _host_repairs(torch, np, dev, frames, failed):
+    """(d) The decode's host syncs; the weight-only forward on the card."""
+    from spef_tpu_torch.codec.facade import SPEUtils
+    from spef_tpu_torch.data.camera import SPEED_CAMERA
+    from spef_tpu_torch.engine import build_predict_fn
+    from spef_tpu_torch.quant.int8_fused import build_fused_forward
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph
+    from spef_tpu_torch.quant.int8_model import build_weight_only_forward
+
+    graph = load_int8_graph(ASSET)
+    utils = SPEUtils.create(SPEED_CAMERA, ori_mode="classification", pos_mode="classification",
+                            device=dev)
+    predict = build_predict_fn(None, utils, forward_fn=build_fused_forward(graph, backend="cuda",
+                                                                            device=dev))
+    x = torch.from_numpy(frames).to(dev)
+    _reset_counters()
+    _, syncs = _kernels_and_syncs(torch, lambda: predict(x))
+    _read_counters("host:syncs", 3, FUSED_LAUNCHES)
+    # Every line outside torch's own install is held to one sync in all (the
+    # decode's eigh); a sync inside torch's modules (one was seen at
+    # torch/__init__.py, its stream bookkeeping) is printed beside it.
+    ours = {k: n for k, n in syncs.items() if not k.startswith("torch/")}
+    log(f"[host:decode] host synchronizations in one fused predict: {sum(syncs.values())}, by "
+        f"line: {syncs}; on the port's lines {sum(ours.values())} (one expected: the decode's "
+        f"eigh)")
+    if sum(ours.values()) != 1 or not all(k.startswith("spef_tpu_torch/codec/softclass.py:")
+                                          for k in ours):
+        failed.append(f"predict synchronizes the host on the port's lines: {ours}")
+    card = build_weight_only_forward(graph, device=dev)(x)
+    cpu = build_weight_only_forward(graph, device="cpu")(torch.from_numpy(frames))
+    d = max(float((a.cpu() - b).abs().max()) for a, b in zip(card, cpu))
+    log(f"[host:weight-only] bf16 products with float32 sums on the card against the CPU's, "
+        f"{len(frames)} frames: max |d logit| {d:.4g} (at most {WEIGHT_ONLY_LOGIT_TOL})")
+    if not d < WEIGHT_ONLY_LOGIT_TOL:
+        failed.append(f"weight-only: {d} in logits from the CPU's")
+
+
+def phase_host_data_path(torch, np, dev, still, root, device_augment_fps):
+    """Phase 15; returns ({path: launches}, {path: kernel checks})."""
+    from spef_tpu_torch import native
+    from spef_tpu_torch.data.dataset import resolve_decoder
+
+    lacking = native.missing()
+    log("[host] the native JPEG / PNG loader: "
+        + (f"cannot be built here, missing {', '.join(lacking)}" if lacking
+           else "g++, jpeglib.h, png.h, libjpeg and libpng present"))
+    t0 = time.perf_counter()
+    failed = []
+    launches, checks, frames = _host_jpeg(torch, np, dev, failed)
+    log(f"[host] (b) the loaders' decoder here: {resolve_decoder('auto')} (phase 8's test split "
+        f"and phase 10's set went through it)")
+    _host_training(torch, np, still, root, device_augment_fps, failed)
+    _host_repairs(torch, np, dev, frames, failed)
+    log(f"[host] phase: {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError("host data path gates failed: " + "; ".join(failed))
+    return {"fused_jpeg_frames": launches}, {"fused_jpeg_frames": checks}
+
+
 def main() -> int:
     import torch
 
@@ -2871,8 +3208,10 @@ def main() -> int:
     rows = phase_kernels(torch, dev, frames, launches, graph)
     train_root = os.path.join(REPO, "build", f"chip_smoke_train_{os.getpid()}")
     try:
-        still, cfg = phase_training(torch, np, dev, train_root)
+        still, cfg, device_augment_fps = phase_training(torch, np, dev, train_root)
         build_launches = phase_deploy_build(torch, np, dev, still, cfg, train_root)
+        host_launches, host_checks = phase_host_data_path(torch, np, dev, still, train_root,
+                                                          device_augment_fps)
     finally:
         shutil.rmtree(train_root, ignore_errors=True)
     for row in rows:
@@ -2902,6 +3241,13 @@ def main() -> int:
         # ... the benchmark's int8_cuda calls held against the plain version
         row["deploy_path_check"] = {
             path: checks[row["name"]] for path, checks in deploy_checks.items()
+            if row["name"] in checks}
+        # the committed JPEG frames through the fused executor (phase 15)
+        row["launches_host_path"] = {
+            path: counts[row["name"]] for path, counts in host_launches.items()
+            if counts[row["name"]]}
+        row["host_path_check"] = {
+            path: checks[row["name"]] for path, checks in host_checks.items()
             if row["name"] in checks}
         if row["name"] in CARRY_LAUNCHES:
             # the graph apps.build_int8 wrote, one request of 64 frames

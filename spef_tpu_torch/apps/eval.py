@@ -78,6 +78,7 @@ def main(argv: Optional[List[str]] = None):
                                      keypoints_border_gate=args.border_gate)
     data, split = load_dataset(data_path, args.batch_size, tuple(cfg.DATA.IMG_SIZE),
                                cache=args.cache_dataset, device=args.device)
+    print(f"Decoder: {next(iter(data.values())).decoder}")
 
     # A QAT checkpoint (model/bit_width.json) belongs to the quantized
     # models: the configured names map to their _q forms.

@@ -20,11 +20,12 @@ An ``--artifact`` (``.spef`` from ``apps/export.py``) serves the exported
 program itself: no experiment directory, model code or weight files; its
 window is the exported batch, and the flags that pick a variant or a window
 (``--int8-*``, the keypoints flags, ``--batch``) are refused beside it.
-``--frames-dir`` serves every ``*.png`` of a directory (sorted, read by
-``data/dataset.py::load_image`` and resized to the model's input) in
-requests of the window and prints one ``name: q=[...] t=[...]`` line a
-frame and the latency stats; JPEG frames need the native
-loader, which is not ported (ROADMAP §A, item 7), and are refused.
+``--frames-dir`` serves every ``*.png`` and ``*.jpg`` of a directory
+(sorted, read by ``data/dataset.py::load_images`` and resized to the
+model's input: the native loader where the host can build it, else the PNG
+reader, which refuses a JPEG; the decoder is printed) in requests of the
+window and prints one ``name: q=[...] t=[...]`` line a frame and the
+latency stats.
 
 The int8 executors of ``--int8-graph``:
 
@@ -207,13 +208,15 @@ def run_selftest(args: argparse.Namespace, server, img_size: Tuple[int, int]) ->
 def serve_frames_dir(args: argparse.Namespace, server, img_size: Tuple[int, int]) -> None:
     """Every frame of ``args.frames_dir`` in requests of the window: one
     ``name: q=[...] t=[...]`` line a frame, then the latency stats."""
-    from spef_tpu_torch.data.dataset import load_image
+    from spef_tpu_torch.data.dataset import load_images, resolve_decoder
 
     paths = sorted(glob.glob(os.path.join(args.frames_dir, "*.png"))
                    + glob.glob(os.path.join(args.frames_dir, "*.jpg")))
+    decoder = resolve_decoder("auto")
+    print(f"Decoder: {decoder}")
     for start in range(0, len(paths), args.batch):
         chunk = paths[start:start + args.batch]
-        frames = np.stack([load_image(p, img_size) for p in chunk])
+        frames = load_images(chunk, img_size, decoder)
         pose, _ = server.predict(frames)
         for p, q, t in zip(chunk, pose["ori"], pose["pos"]):
             print(f"{os.path.basename(p)}: q={np.round(q, 4).tolist()} "

@@ -15,11 +15,18 @@ Usage:
         [--device cuda]
 
 It runs on the card; ``--device cpu`` runs it on the CPU.  The yaw-rotation
-augmentation (``DATA.ROT_AUGMENT``) runs on the device with
-``--device-augment``; the host-side warp is not ported (ROADMAP §A, item
-7), so a config that asks for it needs that flag.  ``--data-parallel``
-changes nothing on one card; with more than one it raises (DDP, ROADMAP §A,
-item 7).
+augmentation (``DATA.ROT_AUGMENT``) warps the frames on the host, in the
+loader (``data/augment_host.py``), as JAX's does, or on the device with
+``--device-augment``; ``--device-data`` needs the latter.  The loader's
+decoder (``data/dataset.py``: native where the host can build it, else the
+PNG reader) is printed.
+
+``--data-parallel`` trains over a ``torch.distributed`` process group, one
+process a card (``parallel/mesh.py``): run it under
+``python -m torch.distributed.run --nproc_per_node N -m spef_tpu_torch.apps.train
+... --data-parallel``.  Each step is the single-device step on the global
+batch; rank 0 writes the experiment.  Without ``torch.distributed.run``, or
+with one process, the flag changes nothing.
 """
 
 from __future__ import annotations
@@ -37,11 +44,13 @@ __all__ = ["main", "run_experiment"]
 
 
 def run_experiment(name: str, cfg, bit_width_path, out_root: str, seed: int = 1001,
-                   data_parallel: bool = False, cache_dataset=False, checkpoint: bool = False,
+                   mesh=None, cache_dataset=False, checkpoint: bool = False,
                    epochs: int = 0, device_augment: bool = False, warm_start: str = "",
                    device: str = "cuda") -> dict:
     """Train, evaluate and save one experiment; returns its records and the
-    trainer's per-epoch timing (``epochs``) and first epoch (``start_epoch``)."""
+    trainer's per-epoch timing (``epochs``) and first epoch (``start_epoch``).
+    ``mesh``: a data-parallel ``parallel.mesh.Mesh`` of more than one rank
+    (it then sets the device), or None."""
     from spef_tpu_torch.codec.facade import SPEUtils
     from spef_tpu_torch.config.train_config import save_config
     from spef_tpu_torch.data.camera import load_camera
@@ -54,25 +63,43 @@ def run_experiment(name: str, cfg, bit_width_path, out_root: str, seed: int = 10
     from spef_tpu_torch.train.trainer import Trainer, evaluation
     from spef_tpu_torch.utils.experiment import prepare_directories, save_score_error, set_seed
 
-    if data_parallel and torch.device(device).type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError("--data-parallel over more than one card needs DDP, which is "
-                                  "not ported yet (ROADMAP §A, item 7: parallel/mesh.py)")
-    if cfg.DATA.ROT_AUGMENT and not device_augment:
-        raise NotImplementedError(
-            "DATA.ROT_AUGMENT asks for the host-side rotation warp, which is not ported yet "
-            "(ROADMAP §A, item 7: data/augment_host.py); pass --device-augment to warp on the "
-            "device")
+    host_warp = bool(cfg.DATA.ROT_AUGMENT and not device_augment)
+    if cache_dataset == "device" and host_warp:
+        raise SystemExit("--device-data requires --device-augment "
+                         "(the host warp cannot touch device-resident images)")
+    if mesh is not None:
+        device = str(mesh.device)
+    lead = mesh is None or mesh.rank == 0
     set_seed(seed)
     # With checkpointing an existing directory is resumed in place.
-    save_folder = prepare_directories(os.path.join(out_root, name),
-                                      on_collision="reuse" if checkpoint else "version")
-    print(f"\nResults will be saved to {save_folder}\n")
+    save_folder = (prepare_directories(os.path.join(out_root, name),
+                                       on_collision="reuse" if checkpoint else "version")
+                   if lead else None)
+    if mesh is not None:  # every rank writes to (and resumes from) rank 0's folder
+        import torch.distributed as dist
+
+        shared = [save_folder]
+        dist.broadcast_object_list(shared, src=0)
+        save_folder = shared[0]
+        if lead:
+            print(f"Data-parallel training over {mesh.size} ranks ({mesh.device.type})")
+    if lead:
+        print(f"\nResults will be saved to {save_folder}\n")
 
     camera = load_camera(cfg.DATA.PATH)
     spe_utils = SPEUtils.from_config(cfg, camera, device=device)
+    rot_augment = None
+    if host_warp:
+        from spef_tpu_torch.data.augment_host import HostRotationAugment
+
+        rot_augment = HostRotationAugment(camera, seed=seed)
     data, split = load_dataset(cfg.DATA.PATH, cfg.DATA.BATCH_SIZE, tuple(cfg.DATA.IMG_SIZE),
-                               shuffle=cfg.DATA.SHUFFLE, seed=seed, cache=cache_dataset,
-                               device=device)
+                               shuffle=cfg.DATA.SHUFFLE, seed=seed, rot_augment=rot_augment,
+                               cache=cache_dataset, device=device)
+    if lead:
+        print(f"Decoder: {next(iter(data.values())).decoder}; yaw-rotation warp: "
+              + (f"host ({rot_augment.warp})" if host_warp else
+                 "device" if cfg.DATA.ROT_AUGMENT else "off"))
 
     bit_width = None
     if bit_width_path:
@@ -108,27 +135,29 @@ def run_experiment(name: str, cfg, bit_width_path, out_root: str, seed: int = 10
         print(f"Warm-started matching parameters from {warm_start}")
 
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"Number of trainable parameters in the model: {n_params:,}\n")
+    if lead:
+        print(f"Number of trainable parameters in the model: {n_params:,}\n")
 
     spe_loss = SPELoss(cfg.MODEL.HEAD.ORI, cfg.MODEL.HEAD.POS, beta=1, norm_distance=True)
     optimizer, scheduler = import_optimizer(
         model.parameters(), cfg.TRAIN.LR, cfg.TRAIN.OPTIM, cfg.TRAIN.MOMENTUM, cfg.TRAIN.DECAY,
         cfg.TRAIN.SCHEDULER, tuple(cfg.TRAIN.MILESTONES), cfg.TRAIN.GAMMA)
     state = create_train_state(model, optimizer, scheduler)
-    save_config(cfg, os.path.join(save_folder, "config.yaml"))
-
     writer = None
-    try:
-        from torch.utils.tensorboard import SummaryWriter
+    if lead:
+        save_config(cfg, os.path.join(save_folder, "config.yaml"))
+        try:
+            from torch.utils.tensorboard import SummaryWriter
 
-        writer = SummaryWriter(os.path.join(save_folder, "tensorboard"))
-    except ImportError:  # the tensorboard package is not installed: no event files
-        pass
+            writer = SummaryWriter(os.path.join(save_folder, "tensorboard"))
+        except ImportError:  # the tensorboard package is not installed: no event files
+            pass
 
     trainer = Trainer(spe_utils, spe_loss, camera,
                       rot_augment=bool(cfg.DATA.ROT_AUGMENT and device_augment),
                       other_augment=cfg.DATA.OTHER_AUGMENT,
-                      clip_batchnorm=cfg.TRAIN.CLIP_BATCHNORM, seed=seed, device=device)
+                      clip_batchnorm=cfg.TRAIN.CLIP_BATCHNORM, seed=seed, device=device,
+                      mesh=mesh)
     ckpt_mngr = None
     if checkpoint:
         from spef_tpu_torch.train.checkpoint import CheckpointManager
@@ -139,6 +168,20 @@ def run_experiment(name: str, cfg, bit_width_path, out_root: str, seed: int = 10
         checkpoint_manager=ckpt_mngr, resume=checkpoint, best_metric=cfg.TRAIN.BEST_METRIC)
     if writer is not None:
         writer.close()
+    warp = None
+    if rot_augment is not None:
+        warp = {"frames": rot_augment.frames, "warped": rot_augment.warped,
+                "seconds": rot_augment.warp_seconds, "warp": rot_augment.warp}
+        if lead:
+            print(f"Host warp: {warp['warped']} of {warp['frames']} frames warped, "
+                  f"{1e3 * warp['seconds'] / max(warp['warped'], 1):.3f} ms a warped frame "
+                  f"(host clock, summed over the loader's threads)")
+    if not lead:  # rank 0 evaluates and writes the experiment
+        import torch.distributed as dist
+
+        dist.barrier()
+        return {"loss": rec_loss, "epochs": trainer.epoch_stats, "host_warp": warp,
+                "folder": save_folder}
 
     # Final evaluation through the engine, then persistence.
     engine = SPETorch(state.model.eval(), spe_utils, device=device)
@@ -149,8 +192,13 @@ def run_experiment(name: str, cfg, bit_width_path, out_root: str, seed: int = 10
               f"pos_err={eval_error[phase]['pos'][0]:.3f}m")
     save_score_error(save_folder, eval_score, eval_error)
     save_model(os.path.join(save_folder, "model"), state.model, bit_width)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
     return {"loss": rec_loss, "score": eval_score, "error": eval_error,
             "epochs": trainer.epoch_stats, "start_epoch": trainer.start_epoch,
+            "host_warp": warp, "decoder": next(iter(data.values())).decoder,
             "folder": save_folder}
 
 
@@ -166,7 +214,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Optional[dict]]:
     parser.add_argument("--out", default="experiments/train", help="output root")
     parser.add_argument("--seed", type=int, default=1001)
     parser.add_argument("--data-parallel", action="store_true",
-                        help="one card: no change; more than one: not ported (DDP)")
+                        help="train over the ranks of torch.distributed.run, one a card (one "
+                             "process: no change)")
     parser.add_argument("--cache-dataset", action="store_true",
                         help="decode each split once and serve its epochs from RAM (a "
                              "memmapped sidecar file on later runs)")
@@ -180,8 +229,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Optional[dict]]:
     parser.add_argument("--epochs", type=int, default=0,
                         help="override TRAIN.N_EPOCH (0 = use config)")
     parser.add_argument("--device-augment", action="store_true",
-                        help="run the yaw-rotation augmentation on the device (the host-side "
-                             "warp is not ported)")
+                        help="run the yaw-rotation augmentation on the device instead of "
+                             "warping the frames on the host")
     parser.add_argument("--warm-start", default="",
                         help="flax msgpack checkpoint to seed matching parameters from "
                              "(leaves of another shape keep their fresh init)")
@@ -202,12 +251,24 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Optional[dict]]:
         parser.error("one of --config / --experiments is required")
 
     logging.basicConfig(level=logging.INFO)
+    mesh = None
+    if args.data_parallel:
+        from spef_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(args.device)
+        if mesh.size == 1:  # one process: nothing is sharded
+            mesh = None
     results: Dict[str, Optional[dict]] = {}
     for name, paths in exps.items():
         results[name] = None
         out_dir = os.path.join(args.out, name)
-        if os.path.isdir(out_dir) and os.listdir(out_dir) and not args.checkpoint:
-            # With --checkpoint an existing directory means "resume", not "skip".
+        # With --checkpoint an existing directory means "resume", not "skip".
+        skip = [bool(os.path.isdir(out_dir) and os.listdir(out_dir) and not args.checkpoint)]
+        if mesh is not None:  # rank 0 decides, before it makes the folder
+            import torch.distributed as dist
+
+            dist.broadcast_object_list(skip, src=0)
+        if skip[0]:
             print(f"Skip {name}: {out_dir} already exists")
             continue
         try:
@@ -216,7 +277,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Optional[dict]]:
                 cfg.MODEL.PRETRAINED_BACKBONE = args.pretrained_backbone
             results[name] = run_experiment(
                 name, cfg, paths["bit_width"], args.out, args.seed,
-                data_parallel=args.data_parallel,
+                mesh=mesh,
                 cache_dataset="device" if args.device_data else args.cache_dataset,
                 checkpoint=args.checkpoint, epochs=args.epochs,
                 device_augment=args.device_augment, warm_start=args.warm_start,
@@ -228,6 +289,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Optional[dict]]:
                 traceback.print_exc(file=f)
             traceback.print_exc()
             print(f"Experiment {name} failed; continuing", file=sys.stderr)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return results
 
 

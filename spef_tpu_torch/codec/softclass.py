@@ -109,7 +109,10 @@ class OrientationSoftClassification:
         a = torch.einsum("bn,ni,nj->bij", p, h, h)
         _, v = torch.linalg.eigh(a)  # ascending eigenvalues
         q_avg = normalize_quaternion(v[..., :, -1])
-        h_inv = torch.linalg.inv(a)
+        # ``inv_ex``: a singular ``A`` (a one-hot PDF) gives non-finite
+        # values as JAX's ``inv`` does, where ``inv`` raises; and it reads
+        # no ``info`` back, so the decode does not sync the host for it.
+        h_inv = torch.linalg.inv_ex(a).inverse
         if squeeze:
             return q_avg[0], h_inv[0]
         return q_avg, h_inv

@@ -19,7 +19,7 @@ four taps that falls outside the image, JAX's rule, as a flat gather
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -261,12 +261,21 @@ def color_jitter(generator: torch.Generator, images: torch.Tensor, brightness=0.
 
 def train_augment(generator: torch.Generator, images: torch.Tensor, ori: torch.Tensor,
                   pos: torch.Tensor, camera: Camera, rot_augment: bool = True,
-                  other_augment: bool = True):
+                  other_augment: bool = True, rows: Optional[Tuple[int, int]] = None):
     """The train-transform stack: yaw rotation (with the pose), Gaussian
-    blur, color jitter; returns (images, ori, pos)."""
+    blur, color jitter; returns (images, ori, pos).
+
+    ``rows = (rank, size)``: the batch is rank ``rank``'s share of a global
+    batch ``size`` times larger (data parallel): the values are drawn for
+    the global batch and this share's rows of them applied."""
+    rank, size = rows or (0, 1)
+    b = images.shape[0]
+    share = slice(rank * b, (rank + 1) * b)
     if rot_augment:
-        images, ori, pos = yaw_rotation_augment(generator, images, ori, pos, camera)
+        apply, deg = draw_yaw_rotation(generator, b * size)
+        images, ori, pos = apply_yaw_rotation(images, ori, pos, camera, apply[share], deg[share])
     if other_augment:
-        images = gaussian_blur(generator, images)
-        images = color_jitter(generator, images)
+        images = apply_gaussian_blur(images, draw_gaussian_blur(generator))
+        jitter = draw_color_jitter(generator, b * size)
+        images = apply_color_jitter(images, **{k: v[share] for k, v in jitter.items()})
     return images, ori, pos

@@ -7,10 +7,23 @@ order), the same split structure per dataset, and the same batches: uint8
 NHWC images, the last batch padded to full size with a ``mask`` (0 for the
 padding rows), a shuffle seeded with ``seed + epoch``.
 
-One decoder, no fallback: PNG files go through :mod:`spef_tpu_torch.data.png`
-(RGB, PIL's bilinear resize).  JPEG files (SPEED, SPEED+) need the native
-loader, which is not ported yet; they raise, as does the host-side rotation
-augmentation (train with the device-side one, ``data/augment.py``).
+The decoder is chosen explicitly, once, and recorded (``decoder``):
+
+  * ``"native"``: :mod:`spef_tpu_torch.native`, the port's copy of JAX's
+    threaded libjpeg / libpng loader and its bilinear resize (it samples,
+    where PIL filters when it downscales).  It reads JPEG (SPEED, SPEED+)
+    and PNG.
+  * ``"png"``: :mod:`spef_tpu_torch.data.png` (RGB, PIL's bilinear resize),
+    PNG only: a JPEG file raises, naming what the native loader lacks here.
+  * ``"auto"`` (the default) resolves to ``"native"`` where g++, the
+    headers and the libraries are present (:func:`native.missing` checks
+    them, nothing is inferred from a failed build), else to ``"png"``: the
+    choice JAX's loader makes on the same machine, so both packages decode
+    a frame to the same pixels.
+
+No decoder falls back to the other.  ``rot_augment`` (a
+:class:`~spef_tpu_torch.data.augment_host.HostRotationAugment`) warps the
+train frames on the host, as JAX's loader does.
 
 :class:`CachedBatchLoader` decodes a split once and serves later epochs from
 RAM, from a memmapped sidecar file on later runs, or, with
@@ -30,19 +43,20 @@ from typing import Dict, Iterator, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from spef_tpu_torch import native
 from spef_tpu_torch.data.png import decode_png, resize_bilinear
 
 __all__ = ["PoseRecord", "Manifest", "BatchLoader", "CachedBatchLoader", "load_dataset",
-           "detect_dataset"]
+           "detect_dataset", "load_image", "load_images", "resolve_decoder", "DECODERS"]
+
+DECODERS = ("auto", "native", "png")
 
 _ORI_KEYS = ("q", "q_vbs2tango", "q_vbs2tango_true")
 _POS_KEYS = ("t", "r_Vo2To_vbs_true")
 
-_JPEG_TODO = ("JPEG images need the native host loader, which is not ported yet "
-              "(ROADMAP §A, item 7: spef_tpu/native/impreproc.cpp)")
-_AUGMENT_TODO = ("host-side rotation augmentation is not ported yet "
-                 "(ROADMAP §A, item 7: data/augment_host.py); augment on the device "
-                 "(data/augment.py, apps.train --device-augment)")
+_CROP_AUGMENT = ("crop-refine manifests (records carry a crop window) are incompatible with "
+                 "host-side rotation augmentation: the stored crop window cannot follow the "
+                 "warped pose; set DATA.ROT_AUGMENT: false for crop-mode training")
 
 
 def _image_number(path: str) -> int:
@@ -91,13 +105,46 @@ class Manifest:
         return len(self.records)
 
 
-def load_image(path: str, img_size: Tuple[int, int]) -> np.ndarray:
-    """Read an image file and resize it to ``img_size`` (H, W): uint8 RGB."""
+def resolve_decoder(decoder: str = "auto") -> str:
+    """``"native"`` or ``"png"``: ``"auto"`` is ``"native"`` where the host
+    can build the native loader, else ``"png"``; ``"native"`` raises, naming
+    what is missing, where it cannot."""
+    if decoder not in DECODERS:
+        raise ValueError(f"decoder must be one of {DECODERS}, got {decoder!r}")
+    if decoder == "auto":
+        return "native" if native.available() else "png"
+    if decoder == "native":
+        native.require()
+    return decoder
+
+
+def _refuse_jpeg(path: str) -> None:
+    lacking = native.missing()
+    where = (f"which this host cannot build: missing {', '.join(lacking)}" if lacking
+             else "which this host can build")
+    raise ValueError(f"{path} is a JPEG file: the 'png' decoder reads PNG only; JPEG goes "
+                     f"through the native loader (decoder='native' or 'auto'), {where}")
+
+
+def load_image(path: str, img_size: Tuple[int, int], decoder: str = "auto") -> np.ndarray:
+    """Read an image file and resize it to ``img_size`` (H, W): uint8 RGB,
+    through ``decoder`` (:func:`resolve_decoder`)."""
+    if resolve_decoder(decoder) == "native":
+        return native.load_batch([path], img_size[0], img_size[1], 1)[0]
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == b"\xff\xd8":
-        raise NotImplementedError(f"{path}: {_JPEG_TODO}")
+        _refuse_jpeg(path)
     return resize_bilinear(decode_png(data), img_size)
+
+
+def load_images(paths: List[str], img_size: Tuple[int, int], decoder: str = "auto",
+                n_threads: int = 0) -> np.ndarray:
+    """:func:`load_image` of each path, stacked: ``(N, H, W, 3)`` uint8 (the
+    native decoder reads them on ``n_threads`` threads, 0 one a core)."""
+    if resolve_decoder(decoder) == "native":
+        return native.load_batch(paths, img_size[0], img_size[1], n_threads)
+    return np.stack([load_image(p, img_size, "png") for p in paths])
 
 
 class BatchLoader:
@@ -105,7 +152,16 @@ class BatchLoader:
 
     Yields dicts: ``images`` (B,H,W,3) uint8, ``ori`` (B,4), ``pos`` (B,3),
     ``mask`` (B,) float32 (0 for padding rows of the final batch), and
-    ``crop`` (B,3) where the records carry crop windows.
+    ``crop`` (B,3) where the records carry crop windows.  ``decoder`` is
+    resolved once, here (:func:`resolve_decoder`), and kept in
+    ``self.decoder``.  ``rot_augment`` warps each valid frame in order and
+    updates its pose.
+
+    ``mesh`` (a data-parallel ``parallel.mesh.Mesh``, set by the caller)
+    keeps the host work to this rank's rows: every batch is still the
+    global one, its poses, ``mask`` and warp draws those of every row, but
+    only the rank's rows (``mesh.rows``) are decoded and warped; the other
+    rows' images are zero, since ``shard_batch`` drops them.
     """
 
     def __init__(
@@ -118,9 +174,11 @@ class BatchLoader:
         n_workers: int = 16,
         drop_remainder: bool = False,
         rot_augment=None,
+        decoder: str = "auto",
     ):
-        if rot_augment is not None:
-            raise NotImplementedError(_AUGMENT_TODO)
+        if (rot_augment is not None and manifest.records
+                and manifest.records[0].crop is not None):
+            raise ValueError(_CROP_AUGMENT)
         self.manifest = manifest
         self.batch_size = batch_size
         self.img_size = tuple(img_size)
@@ -128,6 +186,9 @@ class BatchLoader:
         self.seed = seed
         self.n_workers = n_workers
         self.drop_remainder = drop_remainder
+        self.rot_augment = rot_augment
+        self.decoder = resolve_decoder(decoder)
+        self.mesh = None
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -153,11 +214,14 @@ class BatchLoader:
                 if len(idx) < bs and self.drop_remainder:
                     break
                 recs = [self.manifest.records[i] for i in idx]
-                images = list(pool.map(lambda r: load_image(r.image_path, self.img_size), recs))
                 n_valid = len(recs)
+                keep = self._kept_rows(n_valid)
+                images = self._decode(pool, [r.image_path for r in recs], keep)
                 oris = [r.ori for r in recs]
                 poss = [r.pos for r in recs]
                 crops = [r.crop for r in recs] if recs[0].crop is not None else None
+                if self.rot_augment is not None:
+                    images, oris, poss = self._augment(pool, images, oris, poss, keep)
                 if n_valid < bs:  # pad to full batch, mask invalid rows
                     pad = bs - n_valid
                     images += [np.zeros_like(images[0])] * pad
@@ -176,6 +240,39 @@ class BatchLoader:
                     batch["crop"] = np.stack(crops)
                 yield batch
 
+    def _kept_rows(self, n_valid: int) -> range:
+        """The valid rows of a global batch that this loader decodes and
+        warps: all of them without a ``mesh``, else the rank's."""
+        if self.mesh is None:
+            return range(n_valid)
+        return range(*self.mesh.rows(self.batch_size).indices(n_valid))
+
+    def _augment(self, pool: ThreadPoolExecutor, images, oris, poss, keep: range):
+        """The host warp of each frame: drawn in frame order, as JAX's loader
+        draws them, and applied on the pool's threads; a frame outside
+        ``keep`` has only its pose rotated."""
+        degs = [self.rot_augment.draw() for _ in images]
+        out = list(pool.map(lambda i: self.rot_augment.apply(images[i], oris[i], poss[i],
+                                                             degs[i], warp=i in keep),
+                            range(len(images))))
+        return [o[0] for o in out], [o[1] for o in out], [o[2] for o in out]
+
+    def _decode(self, pool: ThreadPoolExecutor, paths: List[str],
+                keep: range) -> List[np.ndarray]:
+        """The frames of ``paths`` at ``keep``, decoded; the others zero."""
+        h, w = self.img_size
+        todo = [paths[i] for i in keep]
+        if self.decoder == "native":
+            done = list(native.load_batch(todo, h, w, self.n_workers)) if todo else []
+        else:
+            done = list(pool.map(lambda p: load_image(p, self.img_size, "png"), todo))
+        if len(done) == len(paths):
+            return done
+        images = [np.zeros((h, w, 3), np.uint8) for _ in paths]
+        for i, image in zip(keep, done):
+            images[i] = image
+        return images
+
 
 def _pad_rows(a: np.ndarray, pad: int, zeros: bool = False) -> np.ndarray:
     """``a`` with ``pad`` rows appended: zeros, or copies of its last row."""
@@ -190,15 +287,22 @@ class CachedBatchLoader(BatchLoader):
 
     The decoded split (N * H * W * 3 bytes: 5.5 GB for 20,000 frames at
     240x384) is written beside the images as a sidecar ``.npy`` named by
-    the split's identity and memmapped by later runs.  With
-    ``device_resident`` it is copied to ``device`` once and each batch is an
-    index gather there: ``images`` is then a uint8 tensor on that device
-    (its padding rows zero); ``ori``, ``pos`` and ``mask`` stay numpy.
+    the split's identity and memmapped by later runs; a second file,
+    ``.decoder_<...>.json``, records the decoder that built it, and a
+    sidecar of another decoder (or of none recorded) is decoded again.  The
+    host warp (``rot_augment``) is drawn and applied anew each epoch, on
+    copies of the cached frames.  With ``device_resident`` the split is
+    copied to ``device`` once and each batch is an index gather there:
+    ``images`` is then a uint8 tensor on that device (its padding rows
+    zero); ``ori``, ``pos`` and ``mask`` stay numpy.
     """
 
     def __init__(self, *args, device_resident: bool = False,
                  device: Union[str, torch.device] = "cuda", **kw):
         super().__init__(*args, **kw)
+        if device_resident and self.rot_augment is not None:
+            raise ValueError("device-resident data cannot take the host-side warp; augment on "
+                             "the device (data/augment.py)")
         self.device_resident = device_resident
         self.device = torch.device(device)
         self._cache: Optional[np.ndarray] = None
@@ -220,29 +324,46 @@ class CachedBatchLoader(BatchLoader):
         ).encode()).hexdigest()[:10]
         return os.path.join(img_dir, f".decoded_{h}x{w}_{len(self.manifest)}_{ident}.npy")
 
+    def _decoder_path(self, path: str) -> str:
+        """The record of the sidecar's decoder: ``.decoder_<...>.json``."""
+        head, name = os.path.split(path)
+        return os.path.join(head, ".decoder_" + name[len(".decoded_"):-len(".npy")] + ".json")
+
+    def _built_with(self, path: str) -> Optional[str]:
+        try:
+            with open(self._decoder_path(path)) as f:
+                return json.load(f).get("decoder")
+        except (OSError, ValueError):
+            return None
+
     def _materialize(self) -> None:
         path = self._cache_path()
-        if path and os.path.isfile(path):
+        if path and os.path.isfile(path) and self._built_with(path) == self.decoder:
             arr = np.load(path, mmap_mode="r")
             expect = (len(self.manifest),) + tuple(self.img_size) + (3,)
             # Images regenerated in place (same names and count) are caught
-            # by decoding the first one again.
+            # by decoding the first one again, through the same decoder.
             first = self.manifest.records[0].image_path
             if (arr.shape == expect and arr.dtype == np.uint8
-                    and np.array_equal(np.asarray(arr[0]), load_image(first, self.img_size))):
+                    and np.array_equal(np.asarray(arr[0]),
+                                       load_image(first, self.img_size, self.decoder))):
                 self._cache = arr
                 return
         base = BatchLoader(self.manifest, self.batch_size, self.img_size, shuffle=False,
-                           n_workers=self.n_workers)
+                           n_workers=self.n_workers, decoder=self.decoder)
         chunks = [b["images"][:int(b["mask"].sum())] for b in base]
         self._cache = (np.concatenate(chunks) if chunks
                        else np.zeros((0,) + tuple(self.img_size) + (3,), np.uint8))
         if path:
             try:  # a read-only dataset directory keeps the split in RAM only
-                tmp = path + ".tmp"
+                tmp = f"{path}.{os.getpid()}.tmp"  # ranks of a mesh may write it at once
                 with open(tmp, "wb") as f:
                     np.save(f, self._cache)
                 os.replace(tmp, path)
+                record = self._decoder_path(path)
+                with open(f"{record}.{os.getpid()}.tmp", "w") as f:
+                    json.dump({"decoder": self.decoder}, f)
+                os.replace(f"{record}.{os.getpid()}.tmp", record)
             except OSError:
                 pass
 
@@ -266,27 +387,40 @@ class CachedBatchLoader(BatchLoader):
         if self.shuffle:
             np.random.RandomState(self.seed + self._epoch).shuffle(order)
         self._epoch += 1
-        bs = self.batch_size
         recs = self.manifest.records
         oris = np.stack([r.ori for r in recs]).astype(np.float32)
         poss = np.stack([r.pos for r in recs]).astype(np.float32)
         crops = (np.stack([r.crop for r in recs]).astype(np.float32)
                  if recs and recs[0].crop is not None else None)
+        with ThreadPoolExecutor(max_workers=self.n_workers) as pool:
+            yield from self._batches(pool, order, oris, poss, crops)
+
+    def _batches(self, pool, order, oris, poss, crops):
+        bs = self.batch_size
         for start in range(0, len(order), bs):
             idx = order[start:start + bs]
             n_valid = len(idx)
             if n_valid < bs and self.drop_remainder:
                 break
             pad = bs - n_valid
+            ori, pos = oris[idx], poss[idx]
             if self.device_resident:
                 images = self._device_images(idx)
             else:
-                images = self._cache[idx]
+                keep = self._kept_rows(n_valid)
+                if len(keep) == n_valid:
+                    images = self._cache[idx]
+                else:
+                    images = np.zeros((n_valid,) + self._cache.shape[1:], np.uint8)
+                    images[keep.start:keep.stop] = self._cache[idx[keep.start:keep.stop]]
+                if self.rot_augment is not None:
+                    images, ori, pos = (np.stack(x) for x in self._augment(pool, images, ori,
+                                                                            pos, keep))
                 images = _pad_rows(images, pad, zeros=True) if pad else images
             batch = {
                 "images": images,
-                "ori": _pad_rows(oris[idx], pad) if pad else oris[idx],
-                "pos": _pad_rows(poss[idx], pad) if pad else poss[idx],
+                "ori": _pad_rows(ori, pad) if pad else ori,
+                "pos": _pad_rows(pos, pad) if pad else pos,
                 "mask": np.concatenate([np.ones(n_valid, np.float32),
                                         np.zeros(pad, np.float32)]),
             }
@@ -422,9 +556,11 @@ def load_dataset(
 ):
     """Dataset dispatch by path: ``(loaders by split, {"train": ..., "eval": ...})``.
 
+    ``rot_augment``: a ``HostRotationAugment`` for the train split.
     ``cache``: decode each split once and serve its epochs from RAM
     (:class:`CachedBatchLoader`); ``"device"`` keeps the decoded splits on
-    ``device`` and gathers each batch there.
+    ``device`` and gathers each batch there.  Each loader resolves its
+    decoder itself (:func:`resolve_decoder`, ``"auto"``).
     """
     kind = detect_dataset(path)
     args = (path, batch_size, img_size, shuffle, seed, rot_augment, cache, device)

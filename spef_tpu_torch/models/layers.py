@@ -17,6 +17,11 @@ batch variance and decays the running statistics toward the *biased* one
 (``torch.nn.BatchNorm2d`` decays toward the unbiased variance, n/(n-1)
 larger).  :class:`Dropout` is flax's, its mask drawn from an explicit
 ``torch.Generator`` (:func:`set_dropout_generator`).
+
+Data parallel (``parallel/mesh.py``): with a ``mesh`` of more than one rank
+(:func:`set_data_parallel`), train-mode BatchNorm takes the statistics of
+the global batch, its moments summed over the ranks, and Dropout draws the
+global batch's mask and keeps the rank's rows.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch
 from torch import nn
 
 __all__ = ["BatchNorm", "ConvBnAct", "Dropout", "InvertedResidual", "kaiming_normal_fan_out_",
-           "set_dropout_generator"]
+           "set_dropout_generator", "set_data_parallel"]
 
 BN_EPS = 1e-5
 BN_DECAY = 0.9  # flax momentum: running = 0.9 * running + 0.1 * batch
@@ -55,16 +60,37 @@ class BatchNorm(nn.BatchNorm2d):
 
     def __init__(self, features: int):
         super().__init__(features, eps=BN_EPS, momentum=1.0 - BN_DECAY)
+        self.mesh = None  # set_data_parallel
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.mesh is not None and self.mesh.size > 1:
+            return self._global_batch_forward(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             self.running_mean.mul_(BN_DECAY).add_(mean, alpha=1.0 - BN_DECAY)
             self.running_var.mul_(BN_DECAY).add_(var, alpha=1.0 - BN_DECAY)
         return torch.nn.functional.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                                               self.eps)
+
+    def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the mesh's global batch: the sums of x and x^2
+        all-reduced (differentiably), flax's one-pass mean and clipped
+        variance, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+        from spef_tpu_torch.parallel.mesh import all_reduce_sum
+
+        n = x.numel() // x.shape[1] * self.mesh.size
+        sums = all_reduce_sum(self.mesh, torch.stack([x.sum(dim=(0, 2, 3)),
+                                                      (x * x).sum(dim=(0, 2, 3))]))
+        mean = sums[0] / n
+        var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_DECAY).add_(mean, alpha=1.0 - BN_DECAY)
+            self.running_var.mul_(BN_DECAY).add_(var, alpha=1.0 - BN_DECAY)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[None, :, None, None]) * mul[None, :, None, None] \
+            + self.bias[None, :, None, None]
 
 
 class Dropout(nn.Module):
@@ -77,6 +103,7 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.mesh = None  # set_data_parallel
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
@@ -85,7 +112,12 @@ class Dropout(nn.Module):
             raise RuntimeError("Dropout draws its mask from an explicit torch.Generator: "
                                "set_dropout_generator(model, generator) first")
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
+        if self.mesh is not None and self.mesh.size > 1:  # the global batch's mask, our rows
+            shape = (x.shape[0] * self.mesh.size,) + tuple(x.shape[1:])
+            keep = torch.rand(shape, generator=self.generator, device=x.device)[
+                self.mesh.rows(shape[0])] < keep_prob
+        else:
+            keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
@@ -94,6 +126,14 @@ def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+def set_data_parallel(model: nn.Module, mesh) -> None:
+    """Give every :class:`BatchNorm` and :class:`Dropout` of ``model`` the
+    data-parallel ``mesh`` (``parallel/mesh.py``; None to undo)."""
+    for m in model.modules():
+        if isinstance(m, (BatchNorm, Dropout)):
+            m.mesh = mesh
 
 
 class ConvBnAct(nn.Module):

@@ -16,8 +16,13 @@ PyTorch (the JAX functions run outside any Pallas kernel too):
 activations and no activation requant but the learned ranges' clips.  Its
 JAX twin sums bf16 x bf16 products in float32 (``preferred_element_type``);
 a bf16 ``F.conv2d`` rounds that sum to bf16 before the epilogue, so the port
-convolves the bf16-rounded operands in float32 with TF32 off: exact
-products, float32 sums.
+keeps the float32 sum another way.  The 1x1 convolutions, most of the
+MACs, are bf16 x bf16 products with a float32 output
+(``torch.mm(..., out_dtype=torch.float32)`` on the card; on the CPU, which
+has no such kernel, the same bf16 operands multiplied in float32); the 3x3
+stem and depthwise layers convolve the bf16-rounded operands in float32
+with TF32 off.  Either way the products are exact and only the order of
+the float32 sums can differ from JAX's.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ def f32_convs():
 
 def _plan(graph: Dict[str, Any], device: torch.device, conv_dtype: torch.dtype):
     """Device tensors of every layer: ``w`` (OIHW, ``conv_dtype``) and
-    ``w2d`` (K, N) float64 for 1x1 layers, ``mult`` and ``bias`` float32."""
+    ``w2d`` (K, N) for 1x1 layers (float64 for the exact integer executor,
+    else ``conv_dtype``), ``mult`` and ``bias`` float32."""
 
     def t(a, dtype):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
@@ -58,7 +64,8 @@ def _plan(graph: Dict[str, Any], device: torch.device, conv_dtype: torch.dtype):
         out = dict(entry)
         out["w"] = t(np.transpose(w.astype(np.float32), (3, 2, 0, 1)), conv_dtype)
         if w.shape[0] == 1:
-            out["w2d"] = t(w.reshape(w.shape[-2], w.shape[-1]), torch.float64)
+            out["w2d"] = t(w.reshape(w.shape[-2], w.shape[-1]),
+                           torch.float64 if conv_dtype == torch.float32 else conv_dtype)
         out["mult"] = t(np.asarray(entry["mult_core"], np.float32), torch.float32)
         out["bias_t"] = t(np.asarray(entry["bias"], np.float32), torch.float32)
         return out
@@ -88,6 +95,19 @@ def _conv(x: torch.Tensor, layer: Dict[str, Any]) -> torch.Tensor:
                                    stride=layer["stride"], padding=(w.shape[-1] - 1) // 2,
                                    groups=layer["groups"])
     return y.permute(0, 2, 3, 1)
+
+
+def _mm_f32_out(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
+    """NHWC 1x1 convolution as ``(M, K) x (K, N)`` of bf16 operands with
+    float32 products and sums: exact products, as ``preferred_element_type``
+    gives JAX."""
+    b, h, w, cin = x.shape
+    a = x.reshape(-1, cin).to(w2d.dtype)
+    if a.device.type == "cuda":
+        y = torch.mm(a, w2d, out_dtype=torch.float32)
+    else:
+        y = a.float() @ w2d.float()
+    return y.reshape(b, h, w, -1)
 
 
 def _requant(y: torch.Tensor, step: float, qmax: float, qmin: float = 0.0) -> torch.Tensor:
@@ -201,7 +221,8 @@ def build_weight_only_forward(graph: Dict[str, Any],
     g = _plan(scalars(graph), torch.device(device), torch.bfloat16)
 
     def conv(x, layer, relu):
-        y = _conv(x, layer) * layer["mult"] + layer["bias_t"]
+        y = (_mm_f32_out(x, layer["w2d"]) if "w2d" in layer else _conv(x, layer))
+        y = y * layer["mult"] + layer["bias_t"]
         if relu:
             y = torch.clamp_min(y, 0.0)
         if "act_step" in layer:

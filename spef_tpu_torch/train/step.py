@@ -12,6 +12,13 @@ float32 parameters (their gradients are float32) and float32 BatchNorm, as
 in JAX.  No autocast and no loss scaling: bf16 has float32's 8-bit
 exponent, so gradients that fp16 would flush to zero stay representable,
 which is why the JAX package needs no scaler either.
+
+With a data-parallel ``mesh`` of more than one rank (``parallel/mesh.py``)
+the step is the single-device step on the global batch: ``images`` are this
+rank's rows, ``targets`` the global batch's; the activated outputs are
+gathered over the ranks before the loss, each rank back-propagates
+``loss / size`` and the gradients are summed over the ranks before the
+optimizer step.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from torch import nn
 
 from spef_tpu_torch.codec.facade import SPEUtils
 from spef_tpu_torch.models.layers import BatchNorm, set_dropout_generator
+from spef_tpu_torch.parallel.mesh import Mesh, all_gather_rows, all_reduce_gradients
 from spef_tpu_torch.train.loss import SPELoss
 
 __all__ = ["TrainState", "create_train_state", "make_train_step", "make_eval_step",
@@ -72,17 +80,24 @@ def _clamp_batchnorm_scales(model: nn.Module) -> None:
 
 def train_update(state: TrainState, images: torch.Tensor, targets: Dict[str, torch.Tensor],
                  spe_utils: SPEUtils, spe_loss: SPELoss, generator: torch.Generator,
-                 clip_batchnorm: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                 clip_batchnorm: bool = False, mesh: Optional[Mesh] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One optimizer step on a batch of float NHWC images in [0, 1];
     dropout masks from ``generator``.  Returns the loss and the activated
-    pose of the train-mode forward, detached, on the device."""
+    pose of the train-mode forward (of the global batch under a ``mesh``),
+    detached, on the device.  Under a ``mesh`` the model's BatchNorm and
+    Dropout layers must hold it (``models.layers.set_data_parallel``)."""
     model = state.model
     model.train()
     set_dropout_generator(model, generator)
     pose = _apply_last_activation(spe_utils, model(images))
+    size = 1 if mesh is None else mesh.size
+    if size > 1:
+        pose = {k: all_gather_rows(mesh, v) for k, v in pose.items()}
     loss = spe_loss.compute_loss(pose, targets)
     state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    (loss / size if size > 1 else loss).backward()
+    all_reduce_gradients(mesh, model)
     state.optimizer.step()
     if clip_batchnorm:
         _clamp_batchnorm_scales(model)

@@ -18,7 +18,17 @@ Counterparts of ``spef_tpu.train.trainer`` (``Trainer`` and
     reloaded from ``best_model.msgpack``.
 
 Every random draw (augmentation, dropout) comes from one ``torch.Generator``
-on the training device.  The train phase is timed per batch (CUDA events on
+on the training device.
+
+With a data-parallel ``mesh`` of more than one rank (``parallel/mesh.py``,
+JAX's ``mesh``) every rank reads the global batch and computes on its rows:
+its loaders decode and warp only those rows (``BatchLoader.mesh``), the
+augmentation and dropout draw for the global batch, BatchNorm takes the
+global batch's statistics, the outputs are gathered before the loss and the
+metrics, and the gradients summed, so each step is the single-device step
+on the global batch.  Rank 0 alone prints, logs and checkpoints.
+
+The train phase is timed per batch (CUDA events on
 the card, the host clock on the CPU): ``Trainer.epoch_stats`` holds, per
 epoch, the step ms p50, the augmentation ms a batch, frames/s, the share of
 the phase's wall time spent in steps and the peak device memory;
@@ -38,6 +48,8 @@ import torch
 from spef_tpu_torch.codec.facade import SPEUtils
 from spef_tpu_torch.data.augment import train_augment
 from spef_tpu_torch.data.camera import Camera
+from spef_tpu_torch.models.layers import set_data_parallel
+from spef_tpu_torch.parallel.mesh import Mesh, all_gather_rows, replicate, shard_batch
 from spef_tpu_torch.pose.score import pose_errors
 from spef_tpu_torch.train.loss import SPELoss
 from spef_tpu_torch.train.optimizer import set_learning_rate
@@ -52,10 +64,18 @@ _METRIC_KEYS = ("loss", "esa_score", "ori_score", "pos_score", "ori_error", "pos
 _FLUSH_EVERY = 50
 
 
+def _shard_loaders(data: Dict[str, Iterable[Dict]], mesh: Optional[Mesh]) -> None:
+    """Keep each loader's host work (decode, warp) to the rank's rows of
+    ``mesh`` (``BatchLoader.mesh``), or, with None, to none of them."""
+    for loader in data.values():
+        if hasattr(loader, "mesh"):
+            loader.mesh = mesh
+
+
 def _masked_metrics(spe_utils: SPEUtils, pose, targets, mask) -> Dict[str, torch.Tensor]:
     """Mask-weighted ESA metrics (exact over padded batches).  A diverged
     step's non-finite PDFs are decoded as uniform ones (the decode's
-    ``eigh`` and ``inv`` raise on NaN): the loss carries the NaN to the
+    ``eigh`` raises on NaN): the loss carries the NaN to the
     trainer's guard."""
     decoded = spe_utils.decode({
         k: torch.where(torch.isfinite(v), v, 1.0 / v.shape[-1]) if k.endswith("_soft") else v
@@ -111,6 +131,7 @@ class Trainer:
         clip_batchnorm: bool = False,
         seed: int = 1001,
         device: Union[str, torch.device] = "cuda",
+        mesh: Optional[Mesh] = None,
     ):
         self.spe_utils = spe_utils
         self.spe_loss = spe_loss
@@ -120,6 +141,8 @@ class Trainer:
         self.clip_batchnorm = clip_batchnorm
         self.seed = seed
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._lead = self.mesh is None or self.mesh.rank == 0
         self.epoch_stats: List[Dict[str, float]] = []
         self.start_epoch = 1
         self._255 = torch.tensor(255.0, device=self.device)
@@ -166,8 +189,9 @@ class Trainer:
         crop = self._crop(batch)
         targets = self._encode_targets(ori, pos, crop)
         with torch.no_grad():
-            pred = state.model(self._images(batch["images"]))
-            pose = _apply_last_activation(self.spe_utils, pred)
+            pred = state.model(self._images(shard_batch(self.mesh, batch)["images"]))
+            pose = {k: all_gather_rows(self.mesh, v)
+                    for k, v in _apply_last_activation(self.spe_utils, pred).items()}
             metrics = {"loss": self.spe_loss.compute_loss(pose, targets)}
             if crop is not None and "keypoints" in pose:
                 # The loss compares crop-local coordinates; the pose metrics
@@ -208,6 +232,11 @@ class Trainer:
         from spef_tpu_torch.models.wrapper import flax_variables, load_flax_variables
 
         scheduler = scheduler if scheduler is not None else state.scheduler
+        verbose = verbose and self._lead
+        if self.mesh is not None:
+            replicate(self.mesh, state.model)
+            set_data_parallel(state.model, self.mesh)
+            _shard_loaders(data, self.mesh)
         best_loss = 1e6
         best_vars = None
         best_epoch = 1
@@ -266,16 +295,21 @@ class Trainer:
                             "set ROT_AUGMENT: false")
                     if phase == "train":
                         t0 = clock.mark()
-                        images = self._images(batch["images"])
-                        ori, pos, mask = (self._put(batch[k]) for k in ("ori", "pos", "mask"))
+                        local = shard_batch(self.mesh, batch)
+                        images = self._images(local["images"])
+                        ori, pos = (self._put(local[k]) for k in ("ori", "pos"))
+                        mask = self._put(batch["mask"])
                         if augment:
-                            images, ori, pos = train_augment(gen, images, ori, pos, self.camera,
-                                                             self.rot_augment,
-                                                             self.other_augment)
+                            images, ori, pos = train_augment(
+                                gen, images, ori, pos, self.camera, self.rot_augment,
+                                self.other_augment,
+                                None if self.mesh is None else (self.mesh.rank, self.mesh.size))
                         t1 = clock.mark()
+                        ori, pos = all_gather_rows(self.mesh, ori), all_gather_rows(self.mesh, pos)
                         targets = self._encode_targets(ori, pos, self._crop(batch))
                         loss, pose = train_update(state, images, targets, self.spe_utils,
-                                                  self.spe_loss, gen, self.clip_batchnorm)
+                                                  self.spe_loss, gen, self.clip_batchnorm,
+                                                  self.mesh)
                         marks.append((t0, t1, clock.mark()))
                         metrics = {"loss": loss}
                         if not self.spe_utils.keypoints_mode:  # as JAX's train step
@@ -314,19 +348,22 @@ class Trainer:
                         best_vars = flax_variables(state.model)
                         best_loss = sel
                         best_epoch = epoch
-                        if checkpoint_manager is not None:
+                        if checkpoint_manager is not None and self._lead:
                             checkpoint_manager.save_best(
                                 best_vars, meta={"epoch": epoch, "valid_loss": running_loss,
                                                  "best_metric": best_metric, "best_value": sel})
 
-                if writer is not None:
+                if writer is not None and self._lead:
                     for key in _METRIC_KEYS:
                         writer.add_scalar(f"{key}/{phase}", running.get(key), epoch)
 
-            if checkpoint_manager is not None:
+            if checkpoint_manager is not None and self._lead:
                 checkpoint_manager.save(epoch, state, meta={
                     "epoch": epoch, "best_loss": best_loss, "best_epoch": best_epoch})
 
+        if self.mesh is not None:
+            set_data_parallel(state.model, None)
+            _shard_loaders(data, None)
         if best_vars is not None:
             load_flax_variables(state.model, best_vars)
         if verbose:

@@ -5,14 +5,16 @@
     writer (``cv2.imwrite``): every batch's images, ``ori``, ``pos`` and
     ``mask`` equal to the JAX loader's, bit for bit, in order and shuffled
     (seed + epoch, two epochs), the last batch padded.  At the written size
-    the JAX loader's decode (its native loader, or PIL) returns the pixels
-    as they are, and so does the port's; at another size the port's resize is
-    held to PIL's, which the JAX loader falls back to.
+    every decoder returns the pixels as they are; at another size the port's
+    ``"png"`` decoder is held to PIL's resize (the native decoder is held to
+    JAX's native loader in ``tests/test_torch_native.py``).
   * ``Manifest``: the label-key aliases and the numeric filename sort.
   * ``detect_dataset`` / ``load_dataset`` on the four layouts (SPEED, SPEED+,
     D-SPEED still and video): the same family, split names and loader
-    lengths as JAX's.  A JPEG file and the host-side rotation augmentation
-    raise, naming the ROADMAP item that ports them (the split cache,
+    lengths as JAX's, the SPEED layout's JPEG frame decoded as JAX's loader
+    decodes it.  What the loaders refuse: an unknown decoder, a JPEG under
+    the ``"png"`` decoder (naming the native loader), the host warp on a
+    crop-refine manifest and on device-resident data (the split cache,
     ``CachedBatchLoader``, is held in ``tests/test_torch_cached_loader.py``).
 
 Tolerance: none; every comparison is exact.
@@ -20,6 +22,7 @@ Tolerance: none; every comparison is exact.
 
 import json
 import os
+import sys
 
 import cv2
 import numpy as np
@@ -28,6 +31,9 @@ import pytest
 from spef_tpu.data import dataset as jdataset
 from spef_tpu.data.synthetic import create_synthetic_dataset as jax_create
 from spef_tpu_torch.data import dataset
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_native import jax_native_library  # noqa: E402,F401 - JAX's library, built safely
 
 HW = (36, 60)
 
@@ -74,7 +80,7 @@ def test_images_are_rgb_and_resized_as_pil(still):
     for size in ((24, 40), (72, 120)):
         with Image.open(path) as im:
             want = np.asarray(im.convert("RGB").resize(size[::-1], Image.BILINEAR))
-        np.testing.assert_array_equal(dataset.load_image(path, size), want)
+        np.testing.assert_array_equal(dataset.load_image(path, size, "png"), want)
 
 
 def test_manifest_aliases_and_numeric_sort(tmp_path):
@@ -150,11 +156,26 @@ def test_detect_and_load_the_four_layouts(tmp_path, still):
 
 
 def test_what_is_not_ported_raises(tmp_path, still):
+    from spef_tpu_torch.data.augment_host import HostRotationAugment
+    from spef_tpu_torch.data.camera import DSPEED_CAMERA
+
     speed = _layouts(str(tmp_path), still)["speed"]
     data, _ = dataset.load_dataset(speed, 1, HW)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        next(iter(data["real"]))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        dataset.load_dataset(still, 2, HW, rot_augment=lambda *a: a)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        dataset.load_dataset(still, 2, HW, rot_augment=lambda *a: a, cache=True)
+    jdata, _ = jdataset.load_dataset(speed, 1, HW)
+    assert data["real"].decoder == "native"  # JAX's loader also reads it natively here
+    np.testing.assert_array_equal(next(iter(data["real"]))["images"],
+                                  next(iter(jdata["real"]))["images"])
+    real = data["real"].manifest
+    with pytest.raises(ValueError, match="JPEG file.*native loader"):
+        next(iter(dataset.BatchLoader(real, 1, HW, decoder="png")))
+    with pytest.raises(ValueError, match="decoder must be one of"):
+        dataset.BatchLoader(real, 1, HW, decoder="pil")
+    aug = HostRotationAugment(DSPEED_CAMERA)
+    with pytest.raises(ValueError, match="device-resident data cannot take the host-side warp"):
+        dataset.load_dataset(still, 2, HW, rot_augment=aug, cache="device", device="cpu")
+    crop = tmp_path / "crop.json"
+    crop.write_text(json.dumps([{"filename": "a.png", "q": [1, 0, 0, 0], "t": [0, 0, 5],
+                                 "crop": [0.5, 0.5, 0.3]}]))
+    with pytest.raises(ValueError, match="crop-refine manifests"):
+        dataset.BatchLoader(dataset.Manifest.from_json(str(crop), "imgs"), 1, HW,
+                            rot_augment=aug)

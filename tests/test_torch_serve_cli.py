@@ -102,11 +102,20 @@ def test_frames_dir_matches_jax(setup, capsys):
         assert "latency stats: {" in out and "'requests': 2" in out
 
 
-def test_frames_dir_refuses_jpeg(setup, tmp_path):
+def test_frames_dir_refuses_jpeg(setup, tmp_path, monkeypatch):
+    """A JPEG that does not decode is refused by name; on a host without
+    the native loader's headers (monkeypatched) any JPEG is refused, naming
+    them."""
+    from spef_tpu_torch import native
+
     _, artifact, _ = setup
     (tmp_path / "frame.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        serve.main(["--artifact", artifact, "--frames-dir", str(tmp_path), "--device", "cpu"])
+    argv = ["--artifact", artifact, "--frames-dir", str(tmp_path), "--device", "cpu"]
+    with pytest.raises(IOError, match="frame.jpg"):
+        serve.main(argv)
+    monkeypatch.setattr(native, "missing", lambda: ("jpeglib.h", "png.h"))
+    with pytest.raises(ValueError, match="missing jpeglib.h, png.h"):
+        serve.main(argv)
 
 
 @pytest.mark.parametrize("argv", [[], ["--experiment", "x", "--artifact", "y"]])

@@ -18,9 +18,10 @@ with ``--device cpu``, and what they write read back by the JAX package.
     of the QAT parameters it saved, as ``tests/test_torch_convert.py``
     checks (no tolerance); the graph serves through ``apps.serve``'s
     ``carry`` and ``layer`` executors on the CPU.
-  * The refusals: no CUDA without ``--device cpu``, the host rotation warp,
-    ``--autotune``; a failing experiment writes ``error.log`` and the
-    others go on.
+  * The refusals: no CUDA without ``--device cpu``, ``--device-data`` with
+    the host rotation warp (``ROT_AUGMENT`` without ``--device-augment``, as
+    JAX's), ``--autotune``; a failing experiment writes ``error.log`` and
+    the others go on.
 """
 
 import json
@@ -159,19 +160,23 @@ def test_what_the_clis_refuse(tmp_path, capsys, monkeypatch):
         build_app.main(["--config", cfg, "--out", str(tmp_path / "b")])
     with pytest.raises(NotImplementedError, match="item 1"):
         build_app.main(["--config", cfg, "--autotune", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--device-data requires --device-augment"):
+        train_app.main(["--config", cfg, "--out", str(tmp_path / "out_dd"), "--device-data",
+                        "--device", "cpu"])
 
-    # ROT_AUGMENT without --device-augment, and a config that does not
-    # load: each experiment fails on its own, with its error.log.
+    # An unknown backbone and an unknown optimizer: each experiment fails
+    # on its own, with its error.log.
     folder = tmp_path / "exps"
     folder.mkdir()
-    _tiny_config(folder / "exp_a.yaml", still)
+    _tiny_config(folder / "exp_a.yaml", still,
+                 **{"NAME: small_mobile": "NAME: no_such_backbone"})
     _tiny_config(folder / "exp_b.yaml", still, **{"OPTIM: Adam": "OPTIM: Lion",
                                                   "ROT_AUGMENT: true": "ROT_AUGMENT: false"})
     results = train_app.main(["--experiments", str(folder), "--out", str(tmp_path / "out"),
                               "--epochs", "1", "--device", "cpu"])
     assert results == {"exp_a": None, "exp_b": None}
     with open(tmp_path / "out" / "exp_a" / "error.log") as f:
-        assert "--device-augment" in f.read()
+        assert "no_such_backbone" in f.read()
     with open(tmp_path / "out" / "exp_b" / "error.log") as f:
         assert "Lion" in f.read()
     assert "Experiment exp_b failed; continuing" in capsys.readouterr().err
