@@ -105,9 +105,9 @@ each printed on its own lines; any failure exits nonzero:
      and peak memory printed, its final ESAs, and the trained experiment
      served for one batch by ``apps.serve``;
  11. the deployment build on that set: ``python -m
-     spef_tpu_torch.apps.build_int8 --recipe boundary`` from the flagship's
-     float checkpoint, calibrated on the train batches, one QAT epoch (8
-     steps of ``mobilenet_v2_q``) on device-resident data; the ladder's
+     spef_tpu_torch.apps.build_int8 --recipe boundary --autotune`` from the
+     flagship's float checkpoint, calibrated on the train batches, one QAT
+     epoch (8 steps of ``mobilenet_v2_q``) on device-resident data; the ladder's
      ESAs (``qat``, ``int8``, ``weight_only``) and the parity report; int8
      within 0.05 of float's ESA on the same frames; the written
      ``int8_graph.pkl`` served by ``apps.serve --int8-executor carry`` and
@@ -215,7 +215,31 @@ each printed on its own lines; any failure exits nonzero:
      ``eigh``), and the weight-only forward (bf16 products with float32
      sums) on the card against the CPU's within 0.3 logit; the ``kernels``
      line's ``launches_host_path`` and ``host_path_check``;
- 16. the last line: ``{"ok": true, "device": {...}}``.
+ 16. the viewer, the GUI and the autotuner, while phase 10's set and phase
+     11's experiment (``int8_graph.pkl``) are on disk; phase 11 itself ran
+     ``apps.build_int8 --autotune`` (its winners in a table of its own, its
+     ``autotune_report.json`` checked and summarized): (a) ``python -m
+     spef_tpu_torch.apps.viewer --n 16 --video`` (its ``main``) on the
+     ``float`` and ``int8-carry`` engines, counters 0 before and read after
+     (none on float, 34 K1 and 17 K2 a frame on the carry), the frames
+     written, each engine's per-frame ESA and latency, one frame redrawn on
+     the CPU from the poses it drew and held equal to its PNG, the carry's
+     K1 / K2 calls on one frame held against the plain versions; (b)
+     ``apps.gui``'s ``make_server`` on an ephemeral port in a thread:
+     ``GET /``, ``/api/state``, ``/api/select`` of ``int8-carry``, eight
+     ``/api/frame`` calls with the temporal filter on (counters read), a
+     reset; each PNG decoded, the metrics and the p50 latency; (c)
+     ``quant.autotune.tune_graph`` on the committed flagship graph at batch
+     256 into a table of this run's own (no later phase reads it): each
+     node's default and best ms, speedup, library-form ms and backend; the
+     forward all-fused at the cost model's tiles, all-fused at the tuned
+     tiles and on ``plan_backends``' plan, each held against the plain
+     backend (every kernel call by ``check_call``, every kernel the plan
+     launches called at least once, logits within 0.3),
+     launches counted, timed by CUDA events; the tuned tiles' K4 outputs
+     against the default tiles'; the ``kernels`` line's
+     ``launches_viewer_gui_tuner_path`` and ``viewer_gui_tuner_path_check``;
+ 17. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, where ``torch.cuda.is_available()`` is
 false or the package is missing.
@@ -338,12 +362,14 @@ def check_mbconv(a, args, kw):
     Otherwise a mismatch must be one the tie rule admits, and at most
     ``TIE_SHARE`` of the outputs may differ.  The rule admits one int8 step,
     but where a residual sum is requantized by a ratio above 1: there one
-    step of the shared grid is up to ceil(ratio) output steps.  Raises on
-    anything else."""
+    step of the shared grid is up to ceil(ratio) output steps.  The call's
+    ``tile`` (the kernel's output tile) has no part in the plain version.
+    Raises on anything else."""
     from spef_tpu_torch.ops.fused_block import (
         fused_mbconv_plain, fused_mbconv_rounding_input, tie_mismatches)
 
     x, wts = args
+    kw = {k: v for k, v in kw.items() if k != "tile"}
     b = fused_mbconv_plain(x, wts, **kw)
     mis, err = diff(a, b)
     if kw.get("inv_d") is not None:
@@ -1639,7 +1665,7 @@ def phase_training(torch, np, dev, root):
     return still, cfg, device_augment_fps
 
 
-def phase_deploy_build(torch, np, dev, still, cfg, root):
+def phase_deploy_build(torch, np, dev, still, cfg, root, card):
     """Phase 11: ``python -m spef_tpu_torch.apps.build_int8`` on the
     phase-10 set: the boundary recipe warm-started from the flagship's float
     checkpoint, calibrated on the train batches, one QAT epoch from device-
@@ -1658,12 +1684,33 @@ def phase_deploy_build(torch, np, dev, still, cfg, root):
     from spef_tpu_torch.train.trainer import evaluation
 
     t0 = time.perf_counter()
-    result = build_app.main(["--config", cfg, "--out", os.path.join(root, "build_out"),
-                             "--recipe", "boundary", "--fp32-checkpoint",
-                             os.path.join(FLAGSHIP, "model", "parameters.msgpack"),
-                             "--calibrate", "percentile", "--qat-epochs", "1", "--device-data"])
+    _reset_counters()
+    # --autotune stores its winners in the port's default table; here they go
+    # to a table of this run's own, which nothing after this call reads.
+    with _TuningTable(os.path.join(root, "build_tuning.json")):
+        result = build_app.main(["--config", cfg, "--out", os.path.join(root, "build_out"),
+                                 "--recipe", "boundary", "--fp32-checkpoint",
+                                 os.path.join(FLAGSHIP, "model", "parameters.msgpack"),
+                                 "--calibrate", "percentile", "--qat-epochs", "1",
+                                 "--device-data", "--autotune"])
     t1 = time.perf_counter()
     folder, ladder = result["folder"], result["ladder"]
+    tuner_launches = {name: fn.launches for name, fn in _counters().items()}
+    report_path = os.path.join(folder, "autotune_report.json")
+    failed = []
+    if not os.path.isfile(report_path):
+        failed.append("apps.build_int8 --autotune wrote no autotune_report.json")
+    else:
+        with open(report_path) as f:
+            report = json.load(f)
+        speedups = [e["speedup"] for e in report.values() if e.get("speedup")]
+        log(f"[build] (d) apps.build_int8 --autotune at batch {TRAIN_BATCH}: "
+            f"autotune_report.json, {len(report)} signatures; tuned / default speedup median "
+            f"{np.median(speedups):.3f}x, max {max(speedups):.3f}x; backends "
+            f"{sorted(e.get('backend') for e in report.values())}; launches while building "
+            f"(the tuner's and the calibration's) {tuner_launches}; {card}")
+        if tuner_launches["fused_mbconv"] == 0 or tuner_launches["fused_stem"] == 0:
+            failed.append(f"the tuner launched no K3 / K4: {tuner_launches}")
     utils = _flagship_utils(still, dev)
     data, split = load_dataset(still, TRAIN_BATCH, (240, 384))
     model = import_model(params_path=os.path.join(FLAGSHIP, "model", "parameters.msgpack"),
@@ -1673,8 +1720,7 @@ def phase_deploy_build(torch, np, dev, still, cfg, root):
     float_score, _ = evaluation(SPETorch(model, utils, device=dev), data, utils, split["eval"])
     log(f"[build] apps.build_int8 --recipe boundary --fp32-checkpoint <flagship> --calibrate "
         f"percentile --qat-epochs 1 --device-data: {t1 - t0:.2f} s "
-        f"({TRAIN_SET['n_train'] // TRAIN_BATCH} QAT steps of mobilenet_v2_q)")
-    failed = []
+        f"({TRAIN_SET['n_train'] // TRAIN_BATCH} QAT steps of mobilenet_v2_q; --autotune)")
     for phase in split["eval"]:
         f_esa = float_score[phase]["esa"][0]
         got = {stage: ladder[stage][phase]["esa"][0] for stage in ("qat", "int8", "weight_only")}
@@ -1714,7 +1760,7 @@ def phase_deploy_build(torch, np, dev, still, cfg, root):
             failed.append(f"{executor}: kernels {d} in logits from the plain backend")
     if failed:
         raise AssertionError("deployment build gates failed: " + "; ".join(failed))
-    return launches
+    return launches, folder
 
 
 # ---------------------------------------------------------------------------
@@ -2219,13 +2265,18 @@ def _hold_path(torch, tag, label, module, names, build, frames, dev, failed):
     """Every call of the kernels ``names`` (wrappers bound in ``module``) in
     one forward of ``build(backend)`` on ``frames`` (uint8, the path's own
     batch) held by ``check_call``; then the forward's logits
-    against the plain backend's, within 0.3.  A disagreement goes into
-    ``failed``.  Returns {kernel: {calls, input, mismatches, max_abs_err}}."""
+    against the plain backend's, within 0.3.  Every kernel of ``names`` is
+    one the path must launch: one it never called, or a disagreement, goes
+    into ``failed``.  Returns {kernel: {calls, input, mismatches,
+    max_abs_err}}."""
     from spef_tpu_torch.ops import fused_block, int8_ops
 
     calls = _recorded_calls(torch, module, names, lambda: build(backend="cuda"), frames, dev)
     checks = {}
     for name, recs in calls.items():
+        if not recs:
+            failed.append(f"{label}: the path never called {name}")
+            continue
         kernel = getattr(fused_block if name.startswith("fused") else int8_ops, name)
         mis_sum, max_err, bad = 0, 0.0, 0
         for i, (args, kw) in enumerate(recs):
@@ -3155,6 +3206,264 @@ def phase_host_data_path(torch, np, dev, still, root, device_augment_fps):
     return {"fused_jpeg_frames": launches}, {"fused_jpeg_frames": checks}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the viewer, the GUI and the autotuner's plans
+# ---------------------------------------------------------------------------
+
+VIEWER_FRAMES = 16
+GUI_FRAMES = 8
+TUNE_BATCH = BATCH
+
+
+def _viewer(torch, np, dev, folder, still, out, engine, per_forward, card, failed):
+    """``python -m spef_tpu_torch.apps.viewer --n 16 --video`` (its
+    ``main``) on one engine, the counters 0 before and read after; one frame
+    redrawn on the CPU from the poses it drew, held equal to its PNG."""
+    import types
+
+    from spef_tpu_torch.apps import viewer
+    from spef_tpu_torch.data.camera import load_camera
+    from spef_tpu_torch.data.png import read_png
+    from spef_tpu_torch.utils.visualize import VisualizePose
+
+    _reset_counters()
+    t0 = time.perf_counter()
+    records = viewer.main(["--experiment", folder, "--data", still, "--n", str(VIEWER_FRAMES),
+                           "--video", "--engine", engine, "--out", out, "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = _read_counters(f"viewer:{engine}", len(records), per_forward)
+    written = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+    lat = [r["latency_ms"] for r in records]
+    log(f"[viewer] (a) apps.viewer --n {VIEWER_FRAMES} --video --engine {engine}: "
+        f"{len(written)} frames + index.html in {wall:.2f} s; per frame ESA mean "
+        f"{np.mean([r['esa_score'] for r in records]):.4f} (ori "
+        f"{np.mean([r['ori_error'] for r in records]):.3f} deg, pos "
+        f"{np.mean([r['pos_error'] for r in records]):.4f} m), engine latency p50 "
+        f"{np.percentile(lat, 50):.3f} ms, p95 {np.percentile(lat, 95):.3f} ms (host clock; {card})")
+    if len(written) != VIEWER_FRAMES or not os.path.isfile(os.path.join(out, "index.html")):
+        failed.append(f"viewer {engine}: {len(written)} frames written")
+    rec = records[-1]
+    viz = VisualizePose(types.SimpleNamespace(camera=load_camera(still)))
+    redrawn = viz.add_visualization(
+        np.ascontiguousarray(rec["image"][..., ::-1]), true_pose=rec["true_pose"],
+        pred_pose=rec["pred_pose"], temp_pose=rec["temp_pose"], show_true_pose=True,
+        show_pred_pose=True, show_temp_pose=True, show_true_keypoints=True,
+        show_pred_keypoints=True, show_true_bbox=True, show_pred_bbox=True)
+    png = read_png(os.path.join(out, rec["filename"]))[..., ::-1]
+    differ = int((png != redrawn).any(-1).sum())
+    log(f"[viewer] {engine}: {rec['filename']} redrawn on the CPU from the poses the viewer "
+        f"drew: {differ} pixels differ from its PNG (0 expected)")
+    if differ:
+        failed.append(f"viewer {engine}: {differ} pixels of {rec['filename']} differ from the "
+                      f"CPU's redraw")
+    return launches, records[0]["image"]
+
+
+def _gui(torch, np, dev, folder, still, card, failed):
+    """(b) ``apps.gui``'s server on an ephemeral port in a thread: the page,
+    the state, the engine switched to ``int8-carry``, eight frames with the
+    temporal filter on (counters 0 before, read after), a reset."""
+    import base64
+    import threading
+    import urllib.request
+
+    from spef_tpu_torch.apps.gui import GuiBackend, make_server
+    from spef_tpu_torch.data.png import decode_png
+
+    backend = GuiBackend(os.path.dirname(folder), still, device=str(dev))
+    server = make_server(backend, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=120) as r:
+            return r.status, r.read()
+
+    def post(path, obj):
+        req = urllib.request.Request(base + path, data=json.dumps(obj).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+
+    try:
+        status, page = get("/")
+        _, body = get("/api/state")
+        state = json.loads(body)
+        _, state = post("/api/select", {"engine": "int8-carry"})
+        post("/api/reset", {})
+        _reset_counters()
+        frames, wall = [], []
+        for i in range(GUI_FRAMES):
+            t0 = time.perf_counter()
+            _, body = get(f"/api/frame?idx={i}&video=1&overlays=true_pose,pred_pose,temp_pose,"
+                          "true_bbox,pred_bbox")
+            wall.append((time.perf_counter() - t0) * 1e3)
+            frames.append(json.loads(body))
+        launches = _read_counters("gui:int8-carry", GUI_FRAMES, CARRY_LAUNCHES)
+        _, reset = post("/api/reset", {})
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    shapes = {decode_png(base64.b64decode(d["png_b64"])).shape for d in frames}
+    lat = [d["latency_ms"] for d in frames]
+    log(f"[gui] (b) apps.gui on port {server.server_address[1]}: GET / {status} "
+        f"({len(page)} bytes), {len(state['experiments'])} experiment(s), splits "
+        f"{state['splits']}, engines {state['engines']}, engine now {state['engine']}; "
+        f"{GUI_FRAMES} frames with video on: PNG shapes {sorted(shapes)}, still ESA mean "
+        f"{np.mean([d['still']['esa_score'] for d in frames]):.4f}, video ESA mean "
+        f"{np.mean([d['video']['esa_score'] for d in frames]):.4f}; engine latency p50 "
+        f"{np.percentile(lat, 50):.3f} ms, request p50 {np.percentile(wall, 50):.3f} ms "
+        f"(host clock; {card}); reset {reset}")
+    if shapes != {(240, 384, 3)} or state["engine"] != "int8-carry" or not reset.get("ok"):
+        failed.append(f"gui: PNG shapes {shapes}, engine {state['engine']}, reset {reset}")
+    return launches
+
+
+class _TuningTable:
+    """``quant/autotune.py``'s default table, moved to ``path`` for a block
+    of this script (``apps.build_int8 --autotune`` writes there) and moved
+    back after it."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __enter__(self):
+        import spef_tpu_torch.quant.autotune as autotune
+
+        self.saved, autotune.TUNING_PATH = autotune.TUNING_PATH, self.path
+
+    def __exit__(self, *exc):
+        import spef_tpu_torch.quant.autotune as autotune
+
+        autotune.TUNING_PATH = self.saved
+
+
+def _plan_launches(plan):
+    """The kernels one fused forward on ``plan`` launches: K3 for a fused
+    stem, K4 for each fused block, K1 for the head."""
+    return {"fused_stem": int(plan["stem"] == "fused"),
+            "fused_mbconv": plan["blocks"].count("fused"), "int8_matmul_requant": 1}
+
+
+def _tuner(torch, np, dev, root, card, failed):
+    """(c) ``tune_graph`` on the committed flagship graph at batch 256 into a
+    table of this run's own; the forward all-fused at the cost model's
+    tiles (the default forward, which reads no table), all-fused at the
+    tuned tiles and on ``plan_backends``' plan, each held against the plain
+    backend (every kernel call by ``check_call``, every kernel its plan
+    launches called, the logits within 0.3), timed (CUDA events); the tuned
+    tiles' K4 outputs against the default tiles'."""
+    import spef_tpu_torch.quant.int8_fused as int8_fused
+    from spef_tpu_torch.quant.autotune import device_name, lookup_tile, tune_graph
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph
+
+    graph = load_int8_graph(ASSET)
+    tuned = os.path.join(root, "phase16_tuning.json")
+    name = device_name(dev)
+    all_fused = {"stem": "fused", "blocks": ["fused"] * len(graph["blocks"])}
+    _reset_counters()
+    t0 = time.perf_counter()
+    table = tune_graph(graph, (240, 384), batch=TUNE_BATCH, verbose=False, device=dev,
+                       path=tuned)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    launches = {"tune_graph": {name: fn.launches for name, fn in _counters().items()}}
+    sigs = int8_fused.node_signatures(graph, (240, 384))
+    log(f"[tuner] (c) tune_graph, the committed graph at 240x384, batch {TUNE_BATCH}: "
+        f"{tune_s:.1f} s, launches {launches['tune_graph']}; per node (CUDA events, a chain of "
+        f"10 launches on 3 inputs, median of 5 chains; {card}):")
+    for i, sig in enumerate(sigs):
+        e = table[sig]
+        tile = f"{e['th']}x{e['tw']}" if "th" in e else "-"
+        log(f"[tuner]   node {i:2d} {sig}: default {e['default_ms']:.4f} ms, best "
+            f"{e['ms']:.4f} ms (tile {tile}), speedup {e['speedup']:.3f}, library form "
+            f"{e['xla_ms']:.4f} ms -> {e['backend']}")
+
+    frames = np.random.RandomState(16).randint(0, 256, (TUNE_BATCH, 240, 384, 3), np.uint8)
+    x = torch.from_numpy(frames).to(dev)
+    # Each forward as build_fused_forward's keywords; the plan it must run.
+    planned = int8_fused.plan_backends(graph, (240, 384), path=tuned, device=name)
+    forwards = {"all_fused_default_tiles": ({}, all_fused),
+                "all_fused_tuned_tiles": ({"plan": all_fused, "tuning": tuned}, all_fused),
+                "planned": ({"tuning": tuned}, planned)}
+    checks, outs, ms = {}, {}, {}
+    for label, (kw, plan) in forwards.items():
+        def build(backend, kw=kw):
+            return int8_fused.build_fused_forward(graph, backend=backend, device=dev, **kw)
+        fwd = build("cuda")
+        outs[label] = fwd(x)  # the first call resolves the plan and the tiles
+        per_forward = fwd.launches_per_call
+        if per_forward != _plan_launches(plan):
+            failed.append(f"{label}: the forward resolved {per_forward}, its plan launches "
+                          f"{_plan_launches(plan)}")
+        _reset_counters()
+        fwd(x)
+        torch.cuda.synchronize()
+        launches[label] = _read_counters(f"tuner:{label}", 1, per_forward)
+        ms[label] = time_ms(lambda: fwd(x), reps=5)
+        log(f"[tuner] {label}: plan stem {plan['stem']}, blocks "
+            f"{''.join('F' if b == 'fused' else 'X' for b in plan['blocks'])} (F fused, "
+            f"X library form), forward {ms[label]:.3f} ms at batch {TUNE_BATCH} (CUDA "
+            f"events, mean of 5; {card})")
+        # The kernels this plan must launch (K1, the head, always).
+        names = tuple(n for n, c in _plan_launches(plan).items() if c)
+        checks[label] = _hold_path(torch, "tuner", label, int8_fused, names, build,
+                                   frames, dev, failed)
+    d = max(float((a.float() - b.float()).abs().max())
+            for a, b in zip(outs["all_fused_tuned_tiles"], outs["all_fused_default_tiles"]))
+    # K4's outputs at the tuned tiles against the default tiles, block by block.
+    recs = _recorded_calls(torch, int8_fused, ("fused_mbconv",), lambda: int8_fused.
+                           build_fused_forward(graph, backend="cuda", device=dev),
+                           frames, dev)["fused_mbconv"]
+    mis = total = 0
+    for sig, (args, kw) in zip(sigs[1:], recs):
+        tile = lookup_tile(sig, tuned, name)
+        if tile == (0, 0):
+            failed.append(f"the tuned table has no tile of this card for {sig}")
+            continue
+        a = int8_fused.fused_mbconv(*args, **kw)
+        b = int8_fused.fused_mbconv(*args, **kw, tile=tile)
+        mis += int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+        total += a.numel()
+    torch.cuda.synchronize()
+    log(f"[tuner] tuned tiles against the cost model's, all 17 K4 calls of one forward: {mis} "
+        f"int8 mismatches of {total} outputs (0 predicted); logits max |d| {d:.4g}; forward "
+        f"ms: default tiles {ms['all_fused_default_tiles']:.3f}, tuned tiles "
+        f"{ms['all_fused_tuned_tiles']:.3f}, planned {ms['planned']:.3f} ({card})")
+    return launches, checks
+
+
+def phase_viewer_gui_tuner(torch, np, dev, still, folder, root, card):
+    """Phase 16; returns ({path: launches}, {path: kernel checks})."""
+    import spef_tpu_torch.quant.int8_carry as int8_carry
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph
+
+    t0 = time.perf_counter()
+    failed = []
+    launches, checks = {}, {}
+    _viewer(torch, np, dev, folder, still, os.path.join(root, "viewer_float"), "float", {},
+            card, failed)
+    launches["viewer_int8_carry"], frame = _viewer(
+        torch, np, dev, folder, still, os.path.join(root, "viewer_carry"), "int8-carry",
+        CARRY_LAUNCHES, card, failed)
+    graph = load_int8_graph(os.path.join(folder, "int8_graph.pkl"))
+    checks["viewer_int8_carry"] = _hold_path(
+        torch, "viewer", "int8-carry, one viewer frame", int8_carry,
+        ("int8_matmul_requant", "int8_depthwise3x3"),
+        lambda backend: int8_carry.build_int8_carry_forward(graph, backend=backend, device=dev),
+        frame[None], dev, failed)
+    launches["gui_int8_carry"] = _gui(torch, np, dev, folder, still, card, failed)
+    tuner_launches, tuner_checks = _tuner(torch, np, dev, root, card, failed)
+    launches.update(tuner_launches)
+    checks.update(tuner_checks)
+    log(f"[viewer] phase 16: {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError("viewer / GUI / tuner gates failed: " + "; ".join(failed))
+    return launches, checks
+
+
 def main() -> int:
     import torch
 
@@ -3209,9 +3518,12 @@ def main() -> int:
     train_root = os.path.join(REPO, "build", f"chip_smoke_train_{os.getpid()}")
     try:
         still, cfg, device_augment_fps = phase_training(torch, np, dev, train_root)
-        build_launches = phase_deploy_build(torch, np, dev, still, cfg, train_root)
+        build_launches, build_folder = phase_deploy_build(torch, np, dev, still, cfg, train_root,
+                                                         card)
         host_launches, host_checks = phase_host_data_path(torch, np, dev, still, train_root,
                                                           device_augment_fps)
+        viewer_launches, viewer_checks = phase_viewer_gui_tuner(torch, np, dev, still,
+                                                                build_folder, train_root, card)
     finally:
         shutil.rmtree(train_root, ignore_errors=True)
     for row in rows:
@@ -3248,6 +3560,14 @@ def main() -> int:
             if counts[row["name"]]}
         row["host_path_check"] = {
             path: checks[row["name"]] for path, checks in host_checks.items()
+            if row["name"] in checks}
+        # the viewer and the GUI on int8-carry; the tuner and its three
+        # forwards at batch 256 (phase 16)
+        row["launches_viewer_gui_tuner_path"] = {
+            path: counts[row["name"]] for path, counts in viewer_launches.items()
+            if counts[row["name"]]}
+        row["viewer_gui_tuner_path_check"] = {
+            path: checks[row["name"]] for path, checks in viewer_checks.items()
             if row["name"] in checks}
         if row["name"] in CARRY_LAUNCHES:
             # the graph apps.build_int8 wrote, one request of 64 frames

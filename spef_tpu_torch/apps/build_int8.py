@@ -27,7 +27,15 @@ Usage:
         [--calibrate percentile] [--device-data] [--device cuda]
 
 It runs on the card; ``--device cpu`` runs it on the CPU.  ``--autotune``
-needs the autotuner, which is not ported yet (ROADMAP §A, item 1).
+times the fused executor's kernels and their library-op forms on the built
+graph at the config's image size and batch (``quant.autotune.tune_graph``),
+stores the winners in the port's tuning table
+(``build/tuning/fused_tuning.json``) and writes them to
+``autotune_report.json`` in the output folder.  Under ``--device cpu`` it
+times the plain versions on the host's clock, and its table is
+``fused_tuning_cpu.json`` in the output folder, never the default one.  No
+forward reads a table unless its caller names it
+(``quant.int8_fused.build_fused_forward(tuning=...)``).
 """
 
 from __future__ import annotations
@@ -77,14 +85,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
                              "fine-tune")
     parser.add_argument("--calibration-batches", type=int, default=256)
     parser.add_argument("--autotune", action="store_true",
-                        help="not ported yet (ROADMAP §A, item 1)")
+                        help="time the fused kernels' tiles and library forms on the built "
+                             "graph; store the winners in the tuning table")
     parser.add_argument("--percentile", type=float, default=99.99)
     parser.add_argument("--seed", type=int, default=1001)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
-    if args.autotune:
-        raise NotImplementedError("--autotune: the fused-kernel autotuner is not ported yet "
-                                  "(ROADMAP §A, item 1: quant/autotune.py)")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to build on the CPU")
 
@@ -177,6 +183,17 @@ def main(argv: Optional[List[str]] = None) -> dict:
         trainer.fit(create_train_state(qat_model, optimizer, scheduler), data, args.qat_epochs,
                     scheduler, split["train"])
     qat_model.eval()
+
+    if args.autotune:
+        from spef_tpu_torch.quant.autotune import tune_graph
+
+        table = tune_graph(convert_qat_params(qat_model, bit_width), tuple(cfg.DATA.IMG_SIZE),
+                           batch=cfg.DATA.BATCH_SIZE, device=device,
+                           path=(None if torch.device(device).type == "cuda"
+                                 else os.path.join(save_folder, "fused_tuning_cpu.json")))
+        with open(os.path.join(save_folder, "autotune_report.json"), "w") as f:
+            json.dump(table, f, indent=2, sort_keys=True)
+        print(f"Autotune winners persisted ({len(table)} shapes)")
 
     ladder, errors = {}, {}
     ladder["qat"], errors["qat"] = evaluation(SPETorch(qat_model, spe_utils, device=device),

@@ -46,8 +46,10 @@ Numerics shared by kernel and plain version (and the JAX kernels):
 
 K4 reads its two weight matrices in the layouts its tensor-core loads want
 (:func:`pack_mbconv_weights`, once when a forward is built) and takes its
-output tile from :func:`choose_mbconv_tile`, a cost model in the kernel's
-own units that a measured per-shape table can replace.
+output tile from the caller (the fused executor passes the winners of a
+tuning table that ``quant/autotune.py`` measured on the card, when it is
+given one) or from :func:`choose_mbconv_tile`, a cost model in the kernel's
+own units.
 """
 
 from __future__ import annotations
@@ -64,7 +66,8 @@ from spef_tpu_torch.ops.int8_ops import _decode, _encode_bits, _f32, tie_mismatc
 
 __all__ = [
     "fused_stem", "fused_stem_plain", "pack_stem_weights", "fused_mbconv", "fused_mbconv_plain",
-    "pack_mbconv_weights", "unpack_mbconv_weights", "choose_mbconv_tile", "mbconv_smem_bytes",
+    "pack_mbconv_weights", "unpack_mbconv_weights", "choose_mbconv_tile", "ranked_mbconv_tiles",
+    "check_mbconv_tile", "mbconv_smem_bytes",
     "mbconv_warp_grid", "fused_mbconv_rounding_input", "tie_mismatches",
 ]
 
@@ -614,23 +617,53 @@ def _mbconv_tile_cost(batch, ho, wo, cin, ch, cout, stride, expand, dw_grid, res
 
 
 @functools.lru_cache(maxsize=None)
-def choose_mbconv_tile(batch: int, h: int, w: int, cin: int, ch: int, cout: int, stride: int,
-                       expand: bool = True, dw_grid: bool = False, residual: bool = False
-                       ) -> Tuple[int, int]:
-    """The output tile ``(th, tw)`` K4 runs one block on: the cheapest, by
-    the cost model above, among those whose shared memory and accumulator
-    registers fit.  Raises if no tile fits (Cout above 640)."""
+def ranked_mbconv_tiles(batch: int, h: int, w: int, cin: int, ch: int, cout: int, stride: int,
+                        expand: bool = True, dw_grid: bool = False, residual: bool = False
+                        ) -> Tuple[Tuple[int, int], ...]:
+    """Every output tile ``(th, tw)`` whose shared memory and accumulator
+    registers fit, cheapest first by the cost model above (equal costs in
+    the order the sizes are walked)."""
     ho, wo = _out_hw(h, w, stride)
-    best, best_cost = None, None
+    costs = []
     for th in sorted({min(s, ho) for s in _TILE_SIZES}):
         for tw in sorted({min(s, wo) for s in _TILE_SIZES}):
             cost = _mbconv_tile_cost(batch, ho, wo, cin, ch, cout, stride, expand, dw_grid,
                                      residual, th, tw)
-            if cost is not None and (best_cost is None or cost < best_cost):
-                best, best_cost = (th, tw), cost
-    if best is None:
+            if cost is not None:
+                costs.append((cost, th, tw))
+    costs.sort(key=lambda c: c[0])
+    return tuple((th, tw) for _, th, tw in costs)
+
+
+def choose_mbconv_tile(batch: int, h: int, w: int, cin: int, ch: int, cout: int, stride: int,
+                       expand: bool = True, dw_grid: bool = False, residual: bool = False
+                       ) -> Tuple[int, int]:
+    """The output tile ``(th, tw)`` K4 runs one block on when the caller
+    names none: the cheapest by the cost model (:func:`ranked_mbconv_tiles`).
+    Raises if no tile fits (Cout above 640)."""
+    ranked = ranked_mbconv_tiles(batch, h, w, cin, ch, cout, stride, expand, dw_grid, residual)
+    if not ranked:
         raise ValueError(f"fused_mbconv: no tile fits Cin {cin}, Ch {ch}, Cout {cout}")
-    return best
+    return ranked[0]
+
+
+def check_mbconv_tile(tile: Tuple[int, int], h: int, w: int, cin: int, cout: int, stride: int,
+                      expand: bool = True, dw_grid: bool = False, residual: bool = False) -> None:
+    """Raise unless K4 can run this ``(th, tw)`` output tile: at most the
+    output's size, an instantiation's accumulator registers
+    (:func:`mbconv_warp_grid`) and the shared memory of a block
+    (:func:`mbconv_smem_bytes`)."""
+    th, tw = (int(t) for t in tile)
+    ho, wo = _out_hw(h, w, stride)
+    if not (1 <= th <= ho and 1 <= tw <= wo):
+        raise ValueError(f"fused_mbconv: tile {th}x{tw} is outside the {ho}x{wo} output")
+    if mbconv_warp_grid(th * tw, cout) is None:
+        raise ValueError(f"fused_mbconv: tile {th}x{tw} with Cout {cout} needs more "
+                         f"accumulator registers than a block has")
+    smem = mbconv_smem_bytes(th, tw, cin, cout, stride, expand, dw_grid, residual)
+    if smem > MBCONV_SMEM_MAX:
+        raise ValueError(f"fused_mbconv: tile {th}x{tw} needs {smem} bytes of shared memory, "
+                         f"above {MBCONV_SMEM_MAX}")
 
 
 def fused_mbconv(
@@ -648,6 +681,7 @@ def fused_mbconv(
     ratio_out: Optional[float] = 1.0,
     qmin_o: float = -128.0,
     qmax_o: float = 127.0,
+    tile: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """K4: the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
 
@@ -658,6 +692,11 @@ def fused_mbconv(
     clipped to int8 when ``ratio_out`` is None (same step).  ``wts`` may be
     packed already (:func:`pack_mbconv_weights`, with ``dw_grid`` set as
     ``inv_d`` is); unpacked weights are packed here, on every call.
+
+    ``tile`` is the ``(th, tw)`` output tile of a block of the kernel; a
+    tile that does not fit raises (:func:`check_mbconv_tile`).  None takes
+    the cost model's choice (:func:`choose_mbconv_tile`).  The plain version
+    has no tile: a CPU tensor ignores it.
     """
     kw = dict(stride=stride, in_unsigned=in_unsigned, inv_h=inv_h, qmax_h=qmax_h, inv_d=inv_d,
               qmax_d=qmax_d, use_residual=use_residual, inv_sh=inv_sh, qmax_sh=qmax_sh,
@@ -678,7 +717,12 @@ def fused_mbconv(
     ch, cout = wts["w3"].shape
     ho, wo = _out_hw(h, wd, stride)
     expand = "w1" in wts
-    th, tw = choose_mbconv_tile(b, h, wd, cin, ch, cout, stride, expand, dw_grid, use_residual)
+    if tile is None:
+        th, tw = choose_mbconv_tile(b, h, wd, cin, ch, cout, stride, expand, dw_grid,
+                                    use_residual)
+    else:
+        check_mbconv_tile(tile, h, wd, cin, cout, stride, expand, dw_grid, use_residual)
+        th, tw = (int(t) for t in tile)
     out = torch.empty(b, ho, wo, cout, dtype=torch.int8, device=x.device)
     out_mode = 0 if not use_residual else (2 if ratio_out is None else 1)
     lib = _build.load_library("fused_mbconv")

@@ -738,3 +738,126 @@ def test_export_refuses_a_forward_that_launches_hand_kernels(dev, tmp_path):
         export_predict(predict, 4, (240, 384), str(path), device=dev)
     assert not path.exists()
     assert [f.launches for f in counters] == before
+
+
+# ---------------------------------------------------------------------------
+# The autotuner's tiles and the backend plan
+# ---------------------------------------------------------------------------
+
+TUNED_SHAPES = {  # flagship blocks: (x shape, Ch, Cout, stride, random_mbconv_operands kwargs)
+    "b1_s2_expand": ((2, 120, 192, 16), 96, 24, 2, dict()),
+    "b2_s1_residual_ratio": ((2, 60, 96, 24), 144, 24, 1, dict(residual="ratio")),
+    "b16_s1": ((2, 8, 12, 160), 960, 320, 1, dict()),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TUNED_SHAPES))
+def test_k4_at_every_tile_the_tuner_times(dev, case):
+    """Each tile ``tune_graph`` would time at batch 256 for a flagship block:
+    the tie rule against the plain version, and the same bits as the cost
+    model's tile (the spatial tile does not change K4's order of sums)."""
+    from spef_tpu_torch.quant.autotune import _candidates
+
+    shape, ch, cout, stride, kwargs = TUNED_SHAPES[case]
+    g = torch.Generator().manual_seed(sum(shape) + ch)
+    x = torch.randint(-64, 64, shape, generator=g).to(torch.int8).to(dev)
+    wts, kw = random_mbconv_operands(g, shape[-1], ch, cout, **kwargs)
+    wts = {k: v.to(dev) for k, v in wts.items()}
+    kw.update(stride=stride)
+    tiles = _candidates(256, shape[1], shape[2], shape[3], ch, cout, stride, True,
+                        kw["inv_d"] is not None, kw["use_residual"])
+    assert len(tiles) >= 2
+    default = fused_mbconv(x, wts, **kw, tile=tiles[0])
+    _k4_same(default, x, wts, kw)
+    for tile in tiles[1:]:
+        _same(fused_mbconv(x, wts, **kw, tile=tile), default)
+    with pytest.raises(ValueError):
+        fused_mbconv(x, wts, **kw, tile=(64, 64))  # beyond the block's shared memory
+
+
+def _w8a8_graph():
+    from spef_tpu_torch.models.wrapper import import_model
+    from spef_tpu_torch.quant.bitwidth import default_bit_width
+    from spef_tpu_torch.quant.convert import convert_qat_params
+
+    bw = default_bit_width(n_blocks=17, w=8, a=8, shared=8)
+    bw["inverted_residual"][0] = [(8, 8), (8, 8), (8,)]
+    model = import_model("mobilenet_v2_q", "ursonet_q", bit_width=bw, ori_mode="classification",
+                         n_ori_bins=64, pos_mode="regression", device="cpu", seed=5)
+    return convert_qat_params(model)
+
+
+def test_library_nodes_on_the_card(dev):
+    """The plan's library-op form of every node of a w8a8 flagship graph
+    (every sum an integer): bit for bit the same on the card as on the CPU
+    (where ``tests/test_torch_autotune.py`` holds it to JAX's XLA nodes), and
+    against K3 / K4's plain versions at most one int8 step apart on at most
+    1e-4 of the outputs (it divides by a step where the kernels multiply by
+    its reciprocal, as the JAX package's XLA and Pallas nodes do)."""
+    import spef_tpu_torch.quant.int8_fused as int8_fused
+
+    graph = int8_fused.scalars(_w8a8_graph())
+    frames = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (2, 64, 96, 3),
+                                                               np.uint8))
+
+    def tensor_on(device):
+        return lambda a, dtype: torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    (stem_args, stem_kw), nodes, _ = int8_fused.plan_nodes(graph, tensor_on(dev), pack=False)
+    card = int8_fused.library_stem(frames.to(dev),
+                                   int8_fused.library_stem_operands(graph["stem"], tensor_on(dev)))
+    cpu = int8_fused.library_stem(frames, int8_fused.library_stem_operands(graph["stem"]))
+    _same(card.cpu(), cpu)
+
+    def within_a_step(a, b, bits=False):
+        if bits:  # uint8 bits in an int8 container
+            a, b = a.view(torch.uint8), b.view(torch.uint8)
+        d = (a.float() - b.float()).abs()
+        assert float(d.max()) <= 1 and int((d > 0).sum()) <= 1e-4 * d.numel() + 1
+
+    within_a_step(card, fused_stem_plain(frames.to(dev), *stem_args, **stem_kw),
+                  bits=graph["stem"]["act_qmax"] > 127)
+    y = card
+    for nd in nodes:
+        if "requant_in" in nd:
+            from spef_tpu_torch.quant.int8_graph import requant_signed
+
+            y = requant_signed(y, **nd["requant_in"])
+        args = (nd["blk"], nd["in_step"], nd["out_grid"], nd["unsigned"])
+        got = int8_fused.library_block(y, int8_fused.library_block_operands(*args, tensor_on(dev)))
+        _same(got.cpu(), int8_fused.library_block(y.cpu(),
+                                                  int8_fused.library_block_operands(*args)))
+        want = fused_mbconv_plain(y, nd["wts"], **nd["kw"])
+        within_a_step(got, want)
+        y = want
+
+
+def test_hybrid_plan_forward_on_the_card(dev):
+    """The flagship boundary graph on a hybrid plan (the stem and every
+    third block in library ops), batch 4 at 240x384: K3 none, K4 on the
+    fused blocks only, K1 once; its logits within 0.3 of the plain backend
+    on the same plan and of the CPU's."""
+    from spef_tpu_torch.quant.int8_fused import build_fused_forward
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    graph = load_int8_graph(os.path.join(repo, "spef_tpu_torch", "assets",
+                                         "flagship_boundary_int8_graph.pkl"))
+    plan = {"stem": "xla",
+            "blocks": ["xla" if i % 3 == 0 else "fused" for i in range(len(graph["blocks"]))]}
+    n_fused = plan["blocks"].count("fused")
+    frames = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (4, 240, 384, 3),
+                                                               np.uint8))
+    fwd = build_fused_forward(graph, backend="cuda", device=dev, plan=plan)
+    assert fwd.launches_per_call == {"fused_stem": 0, "fused_mbconv": n_fused,
+                                     "int8_matmul_requant": 1}
+    counters = (fused_stem, fused_mbconv, int8_matmul_requant)
+    before = [f.launches for f in counters]
+    got = fwd(frames.to(dev))
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(counters, before)] == [0, n_fused, 1]
+    want = build_fused_forward(graph, backend="plain", device=dev, plan=plan)(frames.to(dev))
+    cpu = build_fused_forward(graph, backend="plain", device="cpu", plan=plan)(frames)
+    for a, b, c in zip(got, want, cpu):
+        assert float((a - b).abs().max()) < 0.3
+        assert float((a.cpu() - c).abs().max()) < 0.3

@@ -18,10 +18,10 @@ with ``--device cpu``, and what they write read back by the JAX package.
     of the QAT parameters it saved, as ``tests/test_torch_convert.py``
     checks (no tolerance); the graph serves through ``apps.serve``'s
     ``carry`` and ``layer`` executors on the CPU.
-  * The refusals: no CUDA without ``--device cpu``, ``--device-data`` with
-    the host rotation warp (``ROT_AUGMENT`` without ``--device-augment``, as
-    JAX's), ``--autotune``; a failing experiment writes ``error.log`` and
-    the others go on.
+  * The refusals: no CUDA without ``--device cpu`` (``--autotune`` too),
+    ``--device-data`` with the host rotation warp (``ROT_AUGMENT`` without
+    ``--device-augment``, as JAX's); a failing experiment writes
+    ``error.log`` and the others go on.
 """
 
 import json
@@ -158,8 +158,8 @@ def test_what_the_clis_refuse(tmp_path, capsys, monkeypatch):
         train_app.main(["--config", cfg, "--out", str(tmp_path / "out")])
     with pytest.raises(SystemExit, match="--device cpu"):
         build_app.main(["--config", cfg, "--out", str(tmp_path / "b")])
-    with pytest.raises(NotImplementedError, match="item 1"):
-        build_app.main(["--config", cfg, "--autotune", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--device cpu"):
+        build_app.main(["--config", cfg, "--out", str(tmp_path / "b"), "--autotune"])
     with pytest.raises(SystemExit, match="--device-data requires --device-augment"):
         train_app.main(["--config", cfg, "--out", str(tmp_path / "out_dd"), "--device-data",
                         "--device", "cpu"])
