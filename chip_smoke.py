@@ -4,8 +4,16 @@
     python3 chip_smoke.py
 
 Run from the repo root on a machine with one CUDA card and the CUDA toolkit
-(``nvcc``).  It imports nothing of JAX and nothing of ``spef_tpu``.  Phases,
-each printed on its own lines; any failure exits nonzero:
+(``nvcc``); phase 17 serves over every visible card, and on two or more also
+launches the kernels off the current card.  Phase 17 alone, on a host with
+several cards:
+
+    python3 -c "import torch, numpy as np, chip_smoke as cs; \
+        f = np.random.RandomState(0).randint(0, 256, (cs.BATCH, 240, 384, 3), np.uint8); \
+        cs.phase_sharded(torch, np, f, cs.phase_card_and_build())"
+
+It imports nothing of JAX and nothing of ``spef_tpu``.  Phases, each printed
+on its own lines; any failure exits nonzero:
 
   1. the card (``nvidia-smi`` name and power limit) and the kernel build:
      every ``spef_tpu_torch/csrc/*.cu`` compiled by ``nvcc`` for ``sm_90a``,
@@ -239,7 +247,29 @@ each printed on its own lines; any failure exits nonzero:
      launches counted, timed by CUDA events; the tuned tiles' K4 outputs
      against the default tiles'; the ``kernels`` line's
      ``launches_viewer_gui_tuner_path`` and ``viewer_gui_tuner_path_check``;
- 17. the last line: ``{"ok": true, "device": {...}}``.
+ 17. inference sharded over every visible card (the driver's machine has
+     one, so there the mesh is that card): each executor (float, ``layer``,
+     ``fused``, ``carry`` on the committed asset, the two-pass crop-refine
+     pair by RANSAC) served by ``apps.serve --device cuda``
+     (``PoseServer`` over ``make_local_mesh("cuda")``: one replica a card
+     runs the forward on its rows, one decode of the gathered window on the
+     first card) against ``--device cuda:0``, the counters 0 before and
+     read after, in all and card by card (``launches_by_card``: the
+     per-forward launches on every card, each request); requests of 256
+     and of 10 (padded) compared: for the int8 executors the served logits
+     (each request's own) and then every output bit for bit, a difference
+     admitted only as the ties of a card whose kernel calls meet their
+     contract; log-PDFs within 1e-3 for float, keypoints within 1e-3 for
+     crop-refine, quaternions up to sign (largest angle printed); frames/s,
+     request p50, the predict and its two stages (forwards, decode) over
+     the cards against one card, and how far the cards' forwards overlap
+     (1: all at once, 0: one after another); (d) the same numbers for
+     ``fused`` and crop-refine at a window of 1,024; on two or more cards
+     first (a): one forward of ``layer`` and of ``fused`` built on the last card
+     while ``cuda:0`` is current, every K1-K4 call held to its plain
+     version; the ``kernels`` line's ``launches_sharded_path`` (all
+     cards', and each card's as counted) and ``sharded_path_check``;
+ 18. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, where ``torch.cuda.is_available()`` is
 false or the package is missing.
@@ -887,6 +917,7 @@ def _counters():
 def _reset_counters():
     for fn in _counters().values():
         fn.launches = 0
+        fn.launches_by_card = {}
 
 
 def _read_counters(label, forwards, per_forward):
@@ -3464,6 +3495,319 @@ def phase_viewer_gui_tuner(torch, np, dev, still, folder, root, card):
     return launches, checks
 
 
+# ---------------------------------------------------------------------------
+# Inference sharded over every local card
+# ---------------------------------------------------------------------------
+
+SHARD_PARTIAL = 10  # frames of the partial request
+SHARD_REPS = 8  # requests of the window, timed
+SHARD_FLOAT_LOGP_TOL = 1e-3  # float over N cards against one card, log-PDF
+SHARD_KP_TOL = 1e-3  # crop-refine keypoints (normalized) over N cards against one card
+# (d): the executors that lose over four cards at 256 (PERF.md §6), at a
+# window four times larger.
+SHARD_WIDE, SHARD_WIDE_EXECUTORS = 4 * BATCH, ("fused", "crop-refine")
+SHARD_EXECUTORS = {  # name: (serve arguments, launches a forward)
+    "float": (["--experiment", FLAGSHIP], {}),
+    "layer": (["--experiment", FLAGSHIP, "--int8-graph", ASSET, "--int8-executor", "layer"],
+              LAYER_LAUNCHES),
+    "fused": (["--experiment", FLAGSHIP, "--int8-graph", ASSET, "--int8-executor", "fused"],
+              FUSED_LAUNCHES),
+    "carry": (["--experiment", FLAGSHIP, "--int8-graph", ASSET, "--int8-executor", "carry"],
+              CARRY_LAUNCHES),
+    "crop-refine": (["--experiment", KP_COARSE, "--crop-refine", KP_FINE, "--ransac"], {}),
+}
+
+
+def _predict_part_ms(torch, server, frames, reps=5):
+    """Host-clock ms, medians over ``reps``, with the frames already on the
+    server's devices: (the predict function, its launch stage alone, its
+    finish stage alone); every device synchronized after each."""
+    import statistics
+
+    sharded = server._sharded
+    shards = sharded.scatter(torch.from_numpy(frames))
+    sharded.synchronize()
+    sharded.run(shards)
+    sharded.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        sharded.run(shards)
+        sharded.synchronize()
+        t1 = time.perf_counter()
+        pose = sharded.launch(shards)
+        sharded.synchronize()
+        t2 = time.perf_counter()
+        sharded.finish(pose)
+        sharded.synchronize()
+        times.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (time.perf_counter() - t2) * 1e3))
+    return tuple(statistics.median(t[i] for t in times) for i in range(3))
+
+
+def _recorded_launches(server):
+    """Install a recorder of the server's gathered launch-stage parts (the
+    int8 executors' logits, crop-refine's keypoints), as its requests serve
+    them; returns (the list they go to, a function that removes it)."""
+    sharded = server._sharded
+    served, launch = [], sharded.launch
+
+    def record(shards):
+        pose = launch(shards)
+        served.append(dict(pose))
+        return pose
+
+    sharded.launch = record
+    return served, lambda: delattr(sharded, "launch")
+
+
+def _read_counters_by_card(label, mesh, forwards, per_forward):
+    """Each card's launch counts since ``_reset_counters``: exactly
+    ``per_forward`` for each of its ``forwards``; returns {kernel: {card:
+    launches}}."""
+    by_card = {name: {f"cuda:{i}": n for i, n in sorted(fn.launches_by_card.items())}
+               for name, fn in _counters().items()}
+    log(f"[{label}] launches by card over {forwards} forwards a card: {by_card}")
+    for name, counts in by_card.items():
+        want = ({str(d): per_forward[name] * forwards for d in mesh.devices}
+                if per_forward.get(name) else {})
+        assert counts == want, (name, counts, want)
+    return by_card
+
+
+def _sharded_gap(torch, np, name, got, want):
+    """How far the sharded server's poses are from the one-card server's:
+    {what: value}, and the failures of the gates of float and crop-refine
+    (the int8 executors are gated by ``_int8_gate``)."""
+    failed = []
+    if name == "crop-refine":
+        gap = {k: float(np.abs(got[k].astype(np.float64) - want[k]).max())
+               for k in ("keypoints", "keypoints_coarse", "keypoints_fine", "crop_box")}
+        gap["gate_keep_mismatches"] = int((got["gate_keep"] != want["gate_keep"]).sum())
+        if max(gap[k] for k in ("keypoints", "keypoints_coarse", "keypoints_fine")) > SHARD_KP_TOL:
+            failed.append(f"crop-refine keypoints {gap} beyond {SHARD_KP_TOL}")
+    else:
+        gap = {"soft_mismatches": int(sum((got[k] != want[k]).sum()
+                                          for k in ("ori_soft", "pos_soft"))),
+               "max_logp": _max_logp(torch, got, want)}
+        if name == "float" and not gap["max_logp"] <= SHARD_FLOAT_LOGP_TOL:
+            failed.append(f"float log-PDFs {gap['max_logp']} apart (at most "
+                          f"{SHARD_FLOAT_LOGP_TOL})")
+    gap["ori_deg"], gap["pos_m"] = _pose_gap(np, got, want)
+    return gap, failed
+
+
+def _int8_gate(torch, np, name, mesh, window, n, got, want, logits, one_logits, failed):
+    """The int8 executor's served request (its first ``n`` rows of
+    ``window``) over the cards against one card's.  The served logits (the
+    requests' own, ``_recorded_launches``) must be bit for bit, and then
+    every output too (one decode of the same logits).  Where a card's rows'
+    logits differ, that is admitted only as ties: a forward built on that
+    card gives those rows the served logits bit for bit and every one of its
+    kernel calls meets its contract (``check_call``), and the outputs
+    differ only on those rows.  Returns {what: value}; the failures go to
+    ``failed``."""
+    import spef_tpu_torch.quant.int8_carry as int8_carry
+    import spef_tpu_torch.quant.int8_cuda as int8_cuda
+    import spef_tpu_torch.quant.int8_fused as int8_fused
+    from spef_tpu_torch.ops import fused_block, int8_ops
+    from spef_tpu_torch.parallel.mesh import data_sharding
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph
+
+    keys = ("ori_soft", "pos_soft")
+    differ = np.zeros(len(window), bool)
+    for k in keys:
+        a, b = logits[k].cpu().numpy(), one_logits[k].cpu().numpy()
+        differ |= (a != b).reshape(len(a), -1).any(-1)
+    out_rows = np.zeros(n, bool)
+    for k in want:
+        out_rows |= (got[k] != want[k]).reshape(n, -1).any(-1)
+    gap = {"logit_rows_differ": int(differ.sum()), "output_rows_differ": int(out_rows.sum()),
+           "kernel_ties": 0}
+    if (out_rows & ~differ[:n]).any():
+        failed.append(f"{name}: {int((out_rows & ~differ[:n]).sum())} rows' outputs differ "
+                      f"from one card's on equal logits")
+    if not differ.any():
+        return gap
+    graph = load_int8_graph(ASSET)
+    module, build = {"layer": (int8_cuda, int8_cuda.build_cuda_forward),
+                     "fused": (int8_fused, int8_fused.build_fused_forward),
+                     "carry": (int8_carry, int8_carry.build_int8_carry_forward)}[name]
+    names = {"fused": ("fused_stem", "fused_mbconv", "int8_matmul_requant")}.get(
+        name, ("int8_matmul_requant", "int8_depthwise3x3"))
+    for rows, dev in zip(data_sharding(mesh, len(window)), mesh.devices):
+        if not differ[rows].any():
+            continue
+        part = build(graph, backend="cuda", device=dev)(torch.from_numpy(window[rows]).to(dev))
+        if not all(torch.equal(p.cpu(), logits[k][rows].cpu()) for p, k in zip(part, keys)):
+            failed.append(f"{name} on {dev}: a forward on its rows does not give the served "
+                          f"logits")
+        calls = _recorded_calls(torch, module, names,
+                                lambda: build(graph, backend="cuda", device=dev),
+                                window[rows], dev)
+        for kernel, recs in calls.items():
+            fn = getattr(fused_block if kernel.startswith("fused") else int8_ops, kernel)
+            for args, kw in recs:
+                try:
+                    gap["kernel_ties"] += check_call(kernel, fn(*args, **kw), args, kw)[0]
+                except AssertionError as e:
+                    failed.append(f"{name} on {dev}: {e}")
+    return gap
+
+
+def _kernels_off_the_current_card(torch, np, mesh, frames, failed):
+    """(a) K1-K4 launched on the mesh's last card while ``cuda:0`` is
+    current: one forward of ``layer`` (K1, K2) and of ``fused`` (K3, K4,
+    K1) built on that card, at a card's rows, every call held to its plain
+    version (``check_call``).  Returns {kernel: {calls, mismatches,
+    max_abs_err}}."""
+    import spef_tpu_torch.quant.int8_cuda as int8_cuda
+    import spef_tpu_torch.quant.int8_fused as int8_fused
+    from spef_tpu_torch.ops import fused_block, int8_ops
+    from spef_tpu_torch.quant.int8_graph import load_int8_graph
+
+    graph = load_int8_graph(ASSET)
+    last = mesh.devices[-1]
+    rows = frames[:len(frames) // mesh.size]
+    checks = {}
+    with torch.cuda.device(0):
+        calls = _recorded_calls(torch, int8_cuda, ("int8_matmul_requant", "int8_depthwise3x3"),
+                                lambda: int8_cuda.build_cuda_forward(graph, device=last),
+                                rows, last)
+        fused = _recorded_calls(torch, int8_fused, ("fused_stem", "fused_mbconv"),
+                                lambda: int8_fused.build_fused_forward(graph, device=last),
+                                rows, last)
+        calls.update(fused)
+        for kernel, recs in calls.items():
+            fn = getattr(fused_block if kernel.startswith("fused") else int8_ops, kernel)
+            mis_sum, max_err = 0, 0.0
+            for args, kw in recs:
+                try:
+                    a = fn(*args, **kw)
+                    torch.cuda.synchronize(last)
+                    assert a.device == last, a.device
+                    mis, err, _ = check_call(kernel, a, args, kw)
+                except AssertionError as e:
+                    failed.append(f"(a) {kernel} on {last}: {e}")
+                    continue
+                mis_sum, max_err = mis_sum + mis, max(max_err, err)
+            assert torch.cuda.current_device() == 0
+            checks[kernel] = {"card": str(last), "calls": len(recs), "mismatches": mis_sum,
+                              "max_abs_err": max_err}
+            log(f"[sharded] (a) {kernel} on {last} with cuda:0 current: {len(recs)} calls "
+                f"(first input {tuple(recs[0][0][0].shape)}), {mis_sum} mismatches, each a tie "
+                f"the rule admits; max |kernel - plain| {max_err:g}")
+    return checks
+
+
+def phase_sharded(torch, np, frames, card):
+    """Phase 17: ``PoseServer`` over every visible card (``apps.serve
+    --device cuda``) against the one-card server (``--device cuda:0``) for
+    each executor; returns ({executor: {"launches": all cards', "by_card":
+    each card's}}, (a)'s checks)."""
+    from spef_tpu_torch.parallel.mesh import make_local_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_local_mesh("cuda")
+    n = mesh.size
+    log(f"[sharded] mesh of {n} card(s): {[str(d) for d in mesh.devices]} ({card})")
+    failed = []
+    checks = {}
+    if n > 1:
+        checks = _kernels_off_the_current_card(torch, np, mesh, frames, failed)
+    else:
+        log("[sharded] (a) needs two or more cards: one card here, so no kernel runs off the "
+            "current one")
+    partial = np.zeros_like(frames)
+    partial[:SHARD_PARTIAL] = frames[:SHARD_PARTIAL]  # the partial request's padded window
+    launches, numbers = {}, {}
+    for name, (argv, per_forward) in SHARD_EXECUTORS.items():
+        served = {}
+        for label, device in (("sharded", "cuda"), ("one", "cuda:0")):
+            server, _ = _serve(torch, [*argv, "--batch", str(BATCH), "--device", device])
+            assert server.stats()["devices"] == (n if device == "cuda" else 1), server.stats()
+            _reset_counters()
+            server.warmup()
+            logits, remove = _recorded_launches(server)
+            window, _ = server.predict(frames)
+            request, _ = server.predict(frames[:SHARD_PARTIAL])
+            remove()
+            for _ in range(SHARD_REPS):
+                server.predict(frames)
+            if label == "sharded":
+                launches[name] = {
+                    "launches": _read_counters(f"sharded:{name}", (3 + SHARD_REPS) * n,
+                                               per_forward),
+                    "by_card": _read_counters_by_card(f"sharded:{name}", mesh, 3 + SHARD_REPS,
+                                                      per_forward)}
+            served[label] = {"server": server, "window": window, "request": request,
+                             "logits": logits}
+        got, want = served["sharded"], served["one"]
+        gap, gate = _sharded_gap(torch, np, name, got["window"], want["window"])
+        gap_partial, gate_partial = _sharded_gap(torch, np, name, got["request"],
+                                                 want["request"])
+        failed += gate + gate_partial
+        if name in ("layer", "fused", "carry"):
+            for what, win, rows, g in (("window", frames, BATCH, gap),
+                                       ("request", partial, SHARD_PARTIAL, gap_partial)):
+                i = 0 if what == "window" else 1
+                g.update(_int8_gate(torch, np, name, mesh, win, rows, got[what], want[what],
+                                    got["logits"][i], want["logits"][i], failed))
+        log(f"[sharded] {name}: {n} card(s) against one card, window {BATCH}: {gap}; request "
+            f"of {SHARD_PARTIAL}: {gap_partial}")
+        # (c) the numbers: requests, and the predict (and its two stages)
+        # over the cards against one card, at the window and at a card's rows.
+        sharded, one = got["server"], want["server"]
+        fps = BATCH * SHARD_REPS / (sum(list(sharded._latencies)[-SHARD_REPS:]) / 1e3)
+        one_fps = BATCH * SHARD_REPS / (sum(list(one._latencies)[-SHARD_REPS:]) / 1e3)
+        part_ms, launch_ms, finish_ms = _predict_part_ms(torch, sharded, frames)
+        one_ms, one_launch_ms, one_finish_ms = _predict_part_ms(torch, one, frames)
+        shard_ms = (_predict_part_ms(torch, one, frames[:BATCH // n])[1] if n > 1
+                    else one_launch_ms)
+        # How far the cards' forwards ran at once: 1 all at once, 0 one
+        # after another.
+        overlap = ((n * shard_ms - launch_ms) / ((n - 1) * shard_ms)) if n > 1 else None
+        numbers[name] = {
+            "cards": n, "frames_s": fps, "one_card_frames_s": one_fps,
+            "request_p50_ms": sharded.stats()["p50_ms"],
+            "one_card_request_p50_ms": one.stats()["p50_ms"],
+            "predict_ms": part_ms, "one_card_predict_ms": one_ms,
+            "launch_ms": launch_ms, "one_card_launch_ms": one_launch_ms,
+            "one_card_launch_ms_at_a_cards_rows": shard_ms,
+            "finish_ms": finish_ms, "one_card_finish_ms": one_finish_ms,
+            "forwards_overlap": overlap}
+        log(f"[sharded] {name}: {n} card(s) {fps:.1f} frames/s, request p50 "
+            f"{numbers[name]['request_p50_ms']:.3f} ms, predict {part_ms:.3f} ms (launch "
+            f"{launch_ms:.3f}, finish {finish_ms:.3f}); one card {one_fps:.1f} frames/s, p50 "
+            f"{numbers[name]['one_card_request_p50_ms']:.3f} ms, predict {one_ms:.3f} ms "
+            f"(launch {one_launch_ms:.3f} at {BATCH}, {shard_ms:.3f} at {BATCH // n}; finish "
+            f"{one_finish_ms:.3f}); host clock, medians; overlap of the cards' forwards "
+            f"{'n/a' if overlap is None else f'{overlap:.3f}'}")
+        del served, got, want, sharded, one
+    wide = np.concatenate([frames] * (SHARD_WIDE // BATCH))
+    for name in SHARD_WIDE_EXECUTORS:
+        # (d) the window of SHARD_WIDE: numbers only (the gates above hold
+        # the same code at 256).
+        row = {"cards": n, "window": SHARD_WIDE}
+        for label, device in (("", "cuda"), ("one_card_", "cuda:0")):
+            server, _ = _serve(torch, [*SHARD_EXECUTORS[name][0], "--batch", str(SHARD_WIDE),
+                                       "--device", device])
+            server.warmup()
+            for _ in range(SHARD_REPS // 2):
+                server.predict(wide)
+            lat = list(server._latencies)
+            row[f"{label}frames_s"] = SHARD_WIDE * len(lat) / (sum(lat) / 1e3)
+            (row[f"{label}predict_ms"], row[f"{label}launch_ms"],
+             row[f"{label}finish_ms"]) = _predict_part_ms(torch, server, wide, reps=3)
+            del server
+        numbers[f"{name}_{SHARD_WIDE}"] = row
+        log(f"[sharded] (d) {name} at {SHARD_WIDE}: {row}")
+    log(f"[sharded] numbers: {json.dumps(numbers)}")
+    log(f"[sharded] phase 17: {time.perf_counter() - t0:.1f} s on {n} card(s)")
+    if failed:
+        raise AssertionError("sharded serving gates failed: " + "; ".join(failed))
+    return launches, checks
+
+
 def main() -> int:
     import torch
 
@@ -3526,6 +3870,7 @@ def main() -> int:
                                                                 build_folder, train_root, card)
     finally:
         shutil.rmtree(train_root, ignore_errors=True)
+    sharded_launches, sharded_checks = phase_sharded(torch, np, frames, card)
     for row in rows:
         if row["name"] == "int8_matmul_requant":
             row["launches_fused_path"] = fused_launches["int8_matmul_requant"]
@@ -3569,6 +3914,16 @@ def main() -> int:
         row["viewer_gui_tuner_path_check"] = {
             path: checks[row["name"]] for path, checks in viewer_checks.items()
             if row["name"] in checks}
+        # each executor served over every card (phase 17): the launches of
+        # all cards, and each card's as its counter read them
+        row["launches_sharded_path"] = {
+            path: {"launches": counts["launches"][row["name"]],
+                   "by_card": counts["by_card"][row["name"]]}
+            for path, counts in sharded_launches.items() if counts["launches"][row["name"]]}
+        # ... and launched on the last card while cuda:0 is current (two or
+        # more cards)
+        if row["name"] in sharded_checks:
+            row["sharded_path_check"] = sharded_checks[row["name"]]
         if row["name"] in CARRY_LAUNCHES:
             # the graph apps.build_int8 wrote, one request of 64 frames
             # through carry and layer (phase_deploy_build)

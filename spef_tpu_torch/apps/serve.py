@@ -1,12 +1,19 @@
-"""Deployment CLI — load an experiment and serve pose inference on one GPU.
+"""Deployment CLI — load an experiment and serve pose inference on every GPU.
 
 Counterpart of ``spef_tpu.apps.serve``: loads a trained experiment (float
 checkpoint, or a QAT one: ``model/bit_width.json`` beside the weights
 selects the quantized ``_q`` models), optionally with a converted
 ``int8_graph.pkl``, or an exported ``.spef`` artifact, builds the serving
-program on one device (``serving.PoseServer``: a padded window, pinned
-host staging on ``cuda``) and either runs a throughput / latency self-test
-or serves the frames of a directory.
+program (``serving.PoseServer``: a padded window, pinned host staging on
+``cuda``) and either runs a throughput / latency self-test or serves the
+frames of a directory.
+
+``--device cuda`` serves on every visible card, as JAX's serves on every
+local chip: one replica of the served forward a card (its own model or
+packed int8 weights), each request's window split over them by rows
+(``parallel.mesh.make_local_mesh``; the window must divide over the
+cards), the decode run once on the first card over the gathered window.  ``--device cuda:K`` serves on card K alone, ``--device cpu`` on one
+CPU replica.  An ``--artifact`` runs on one device, as JAX's.
 
 Usage:
     python -m spef_tpu_torch.apps.serve --experiment experiments/train_synth/exp_dspeed_synth \\
@@ -86,7 +93,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--crop-refine", default=None, metavar="FINE_EXP",
                         help="keypoints mode: serve the two-pass crop-refine pipeline, this "
                              "experiment the coarse pass and FINE_EXP the crop-trained fine pass")
-    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda: every visible card (one host thread dispatches every "
+                             "card's forward, so an executor whose forward at a card's rows "
+                             "takes the host longer than the card serves slower than on one "
+                             "card; PERF.md section 6 lists which); cuda:K: card K alone; cpu")
     args = parser.parse_args(argv)
     if bool(args.experiment) == bool(args.artifact):
         parser.error("exactly one of --experiment / --artifact is required")
@@ -113,30 +124,38 @@ def load_artifact(args: argparse.Namespace):
     print(f"Serving AOT artifact {args.artifact} "
           f"(variant={engine.meta.get('variant')}, window={engine.batch}x{img_size})")
     return PoseServer(engine, img_shape=(*img_size, 3), max_batch=engine.batch,
-                      device=args.device), img_size
+                      device=engine.device), img_size
 
 
 def build_server(args: argparse.Namespace):
-    """(PoseServer, img_size) for the experiment named by ``args``."""
+    """(PoseServer, img_size) for the experiment named by ``args``, over the
+    mesh ``args.device`` names (every visible card for ``cuda``)."""
     from spef_tpu_torch.codec.facade import SPEUtils
     from spef_tpu_torch.config.train_config import load_config
     from spef_tpu_torch.data.camera import SPEED_CAMERA, load_camera
     from spef_tpu_torch.engine import (build_crop_refine_fn, build_predict_fn,
                                        load_experiment_model)
     from spef_tpu_torch.models.wrapper import import_model
+    from spef_tpu_torch.parallel.mesh import make_local_mesh
     from spef_tpu_torch.quant.bitwidth import experiment_model_names
     from spef_tpu_torch.serving import PoseServer
 
     cfg = load_config(os.path.join(args.experiment, "config.yaml"))
     camera = load_camera(cfg.DATA.PATH) if os.path.exists(cfg.DATA.PATH) else SPEED_CAMERA
-    spe_utils = SPEUtils.from_config(cfg, camera, device=args.device,
-                                     keypoints_ransac=args.ransac,
-                                     keypoints_border_gate=args.border_gate)
     img_size = tuple(cfg.DATA.IMG_SIZE)
     if args.crop_refine and args.int8_graph:
         raise SystemExit("--crop-refine takes no --int8-graph: the int8 graph's schema is "
                          "MobileNetV2 + URSONet only (use the engine's crop-refine-w8 variant "
                          "for weight-only int8 of both passes)")
+    mesh = make_local_mesh(args.device)
+    if args.batch % mesh.size:
+        raise SystemExit(f"--batch {args.batch} does not divide over the {mesh.size} devices of "
+                         f"--device {args.device}: pass a --batch that does, or --device cuda:K "
+                         f"for one card")
+    # The decode runs on the mesh's first device, on the gathered window.
+    spe_utils = SPEUtils.from_config(cfg, camera, device=mesh.devices[0],
+                                     keypoints_ransac=args.ransac,
+                                     keypoints_border_gate=args.border_gate)
 
     if args.int8_graph:
         from spef_tpu_torch.quant.int8_carry import build_int8_carry_forward
@@ -145,15 +164,17 @@ def build_server(args: argparse.Namespace):
         from spef_tpu_torch.quant.int8_graph import load_int8_graph
         from spef_tpu_torch.quant.int8_model import build_weight_only_forward
 
-        model = None
         graph = load_int8_graph(args.int8_graph)
         if args.int8_executor == "weight-only":
-            forward_fn = build_weight_only_forward(graph, device=args.device)
+            def build_forward(device):
+                return build_weight_only_forward(graph, device=device)
             backend = "plain PyTorch"
         else:
             build = {"layer": build_cuda_forward, "fused": build_fused_forward,
                      "carry": build_int8_carry_forward}[args.int8_executor]
-            forward_fn = build(graph, backend=args.int8_backend, device=args.device)
+
+            def build_forward(device):
+                return build(graph, backend=args.int8_backend, device=device)
             backend = f"{args.int8_backend} backend"
         print(f"Serving int8 graph ({args.int8_executor} executor, {backend})")
     else:
@@ -161,33 +182,40 @@ def build_server(args: argparse.Namespace):
         # models: the configured names map to their _q forms.
         backbone_name, head_name, bit_width = experiment_model_names(
             args.experiment, cfg.MODEL.BACKBONE.NAME, cfg.MODEL.HEAD.NAME)
-        model = import_model(
-            backbone_name=backbone_name,
-            head_name=head_name,
-            params_path=os.path.join(args.experiment, "model", "parameters.msgpack"),
-            bit_width=bit_width,
-            residual=cfg.MODEL.BACKBONE.RESIDUAL,
-            quantization=cfg.MODEL.QUANTIZATION or bit_width is not None,
-            ori_mode=cfg.MODEL.HEAD.ORI,
-            n_ori_bins=spe_utils.orientation.n_bins,
-            pos_mode=cfg.MODEL.HEAD.POS,
-            n_pos_bins=spe_utils.position.n_bins,
-            img_size=img_size,
-            device=args.device,
-        )
+
+        def build_model(device):
+            return import_model(
+                backbone_name=backbone_name,
+                head_name=head_name,
+                params_path=os.path.join(args.experiment, "model", "parameters.msgpack"),
+                bit_width=bit_width,
+                residual=cfg.MODEL.BACKBONE.RESIDUAL,
+                quantization=cfg.MODEL.QUANTIZATION or bit_width is not None,
+                ori_mode=cfg.MODEL.HEAD.ORI,
+                n_ori_bins=spe_utils.orientation.n_bins,
+                pos_mode=cfg.MODEL.HEAD.POS,
+                n_pos_bins=spe_utils.position.n_bins,
+                img_size=img_size,
+                device=device,
+            )
         if bit_width is not None:
             print(f"Serving the QAT model ({backbone_name} + {head_name})")
-        forward_fn = None
     if args.crop_refine:
         fine_hw = tuple(load_config(os.path.join(args.crop_refine, "config.yaml")).DATA.IMG_SIZE)
-        predict = build_crop_refine_fn(model, load_experiment_model(args.crop_refine,
-                                                                    args.device),
-                                       spe_utils, crop_hw=fine_hw)
         print(f"Serving the two-pass crop-refine pipeline (fine: {args.crop_refine})")
-    else:
-        predict = build_predict_fn(model, spe_utils, forward_fn=forward_fn)
-    server = PoseServer(predict, img_shape=(*img_size, 3), max_batch=args.batch,
-                        device=args.device)
+
+    def build_predict(device):
+        """The served predict of one replica, its weights on ``device``."""
+        if args.crop_refine:
+            return build_crop_refine_fn(build_model(device),
+                                        load_experiment_model(args.crop_refine, device),
+                                        spe_utils, crop_hw=fine_hw)
+        if args.int8_graph:
+            return build_predict_fn(None, spe_utils, forward_fn=build_forward(device))
+        return build_predict_fn(build_model(device), spe_utils)
+
+    server = PoseServer(build_predict, img_shape=(*img_size, 3), max_batch=args.batch,
+                        mesh=mesh)
     return server, img_size
 
 
@@ -230,7 +258,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         raise SystemExit("no CUDA device: pass --device cpu to serve on the CPU")
     server, img_size = load_artifact(args) if args.artifact else build_server(args)
     print(f"Warming up (batch window {args.batch})...")
-    print(f"Ready in {server.warmup():.1f}s on {args.device}")
+    ready_s = server.warmup()
+    print(f"Ready in {ready_s:.1f}s on {server.stats()['devices']} device(s) ({server.device})")
     if args.frames_dir:
         serve_frames_dir(args, server, img_size)
     else:

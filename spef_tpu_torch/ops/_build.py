@@ -21,7 +21,7 @@ import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 __all__ = ["SOURCES", "build_all", "load_library", "nvcc_path", "check", "refuse_tracing",
-           "KernelTraceError"]
+           "count_launch", "KernelTraceError"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -126,6 +126,13 @@ def refuse_tracing(what: str, x) -> None:
             f"launch on a tensor with no memory); export a forward without hand kernels "
             f"(float, qat, int8 = build_int8_forward, weight_only), or register K1-K4 as "
             f"torch.library custom ops with fake implementations (ROADMAP §A, item 10)")
+
+
+def count_launch(wrapper, device) -> None:
+    """One launch of ``wrapper``'s kernel on the card ``device``: one more
+    in its ``launches`` and in its ``launches_by_card[device.index]``."""
+    wrapper.launches += 1
+    wrapper.launches_by_card[device.index] = wrapper.launches_by_card.get(device.index, 0) + 1
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

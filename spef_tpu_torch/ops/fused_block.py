@@ -18,7 +18,8 @@ package left to XLA.
 
 Each wrapper launches its kernel for CUDA tensors (raising on a CUDA error,
 never falling back) and runs the ``*_plain`` version for CPU tensors; each
-counts its kernel launches in its ``launches`` attribute.
+counts its kernel launches in its ``launches`` attribute, and each card's
+in ``launches_by_card`` (by the card's index).
 
 Numerics shared by kernel and plain version (and the JAX kernels):
 
@@ -213,16 +214,18 @@ def fused_stem(
     lib = _build.load_library("fused_stem")
     fn = lib.spef_fused_stem
     fn.argtypes, fn.restype = _STEM_ARGTYPES, _I
-    code = fn(images.data_ptr(), packed.data_ptr(), mult.data_ptr(), bias.data_ptr(),
-              out.data_ptr(),
-              b, h, wd, cout, inv_step, qmax,
-              torch.cuda.current_stream(images.device).cuda_stream)
-    _build.check(lib, code, "fused_stem")
-    fused_stem.launches += 1
+    with torch.cuda.device(images.device):  # the launcher sets the kernel's shared memory
+        code = fn(images.data_ptr(), packed.data_ptr(), mult.data_ptr(), bias.data_ptr(),
+                  out.data_ptr(),
+                  b, h, wd, cout, inv_step, qmax,
+                  torch.cuda.current_stream(images.device).cuda_stream)
+        _build.check(lib, code, "fused_stem")
+    _build.count_launch(fused_stem, images.device)
     return out
 
 
 fused_stem.launches = 0
+fused_stem.launches_by_card = {}
 
 
 # ---------------------------------------------------------------------------
@@ -728,16 +731,19 @@ def fused_mbconv(
     lib = _build.load_library("fused_mbconv")
     fn = lib.spef_fused_mbconv
     fn.argtypes, fn.restype = _MBCONV_ARGTYPES, _I
-    code = fn(x.data_ptr(), int(in_unsigned), wts["wblob"].data_ptr(), wts["aux3"].data_ptr(),
-              out.data_ptr(),
-              b, h, wd, cin, ch, cout, stride, int(expand),
-              int(inv_h is not None), 1.0 if inv_h is None else inv_h, qmax_h,
-              int(dw_grid), 1.0 if inv_d is None else inv_d, qmax_d,
-              out_mode, inv_sh, qmax_sh, 1.0 if ratio_out is None else ratio_out, qmin_o, qmax_o,
-              th, tw, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "fused_mbconv")
-    fused_mbconv.launches += 1
+    # The launcher reads the SM count and occupancy of the current device.
+    with torch.cuda.device(x.device):
+        code = fn(x.data_ptr(), int(in_unsigned), wts["wblob"].data_ptr(),
+                  wts["aux3"].data_ptr(), out.data_ptr(),
+                  b, h, wd, cin, ch, cout, stride, int(expand),
+                  int(inv_h is not None), 1.0 if inv_h is None else inv_h, qmax_h,
+                  int(dw_grid), 1.0 if inv_d is None else inv_d, qmax_d,
+                  out_mode, inv_sh, qmax_sh, 1.0 if ratio_out is None else ratio_out, qmin_o,
+                  qmax_o, th, tw, torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(lib, code, "fused_mbconv")
+    _build.count_launch(fused_mbconv, x.device)
     return out
 
 
 fused_mbconv.launches = 0
+fused_mbconv.launches_by_card = {}

@@ -14,7 +14,8 @@ never falling back) and runs the ``*_plain`` version for CPU tensors.  The
 plain versions are the kernels' arithmetic written in PyTorch: the CPU tests
 hold them against the JAX kernels, and ``chip_smoke.py`` holds the kernels
 against them on the card.  Each wrapper counts its kernel launches in its
-``launches`` attribute.
+``launches`` attribute, and each card's in ``launches_by_card`` (by the
+card's index).
 
 Numerics shared by both versions (and by the JAX kernels): integer sums are
 exact (K1 sums them on the int8 tensor cores); ``y = acc * mult + bias`` is
@@ -364,18 +365,22 @@ def int8_matmul_requant(
     lib = _build.load_library("int8_matmul_requant")
     fn = lib.spef_int8_matmul_requant
     fn.argtypes, fn.restype = _MM_ARGTYPES, _I
-    code = fn(x.data_ptr(), x_mode, wp.data_ptr(), kpad, mult.data_ptr(), bias.data_ptr(),
-              residual.data_ptr() if out_mode == 3 else None, out.data_ptr(), out_mode,
-              m, n, k, int(relu),
-              out_step if divide else (0.0 if out_inv_step is None else out_inv_step),
-              out_qmin, out_qmax, res_ratio, res_qmin, res_qmax, int(divide), out_zp,
-              torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "int8_matmul_requant")
-    int8_matmul_requant.launches += 1
+    # The launcher sets the kernel's shared memory and reads the SM count and
+    # occupancy of the current device: make it the operands' card.
+    with torch.cuda.device(x.device):
+        code = fn(x.data_ptr(), x_mode, wp.data_ptr(), kpad, mult.data_ptr(), bias.data_ptr(),
+                  residual.data_ptr() if out_mode == 3 else None, out.data_ptr(), out_mode,
+                  m, n, k, int(relu),
+                  out_step if divide else (0.0 if out_inv_step is None else out_inv_step),
+                  out_qmin, out_qmax, res_ratio, res_qmin, res_qmax, int(divide), out_zp,
+                  torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(lib, code, "int8_matmul_requant")
+    _build.count_launch(int8_matmul_requant, x.device)
     return out
 
 
 int8_matmul_requant.launches = 0
+int8_matmul_requant.launches_by_card = {}
 
 
 # ---------------------------------------------------------------------------
@@ -483,13 +488,16 @@ def int8_depthwise3x3(
     lib = _build.load_library("int8_depthwise3x3")
     fn = lib.spef_int8_depthwise3x3
     fn.argtypes, fn.restype = _DW_ARGTYPES, _I
-    code = fn(x.data_ptr(), x_mode, w.data_ptr(), mult.data_ptr(), bias.data_ptr(),
-              out.data_ptr(), out_mode, b, h, wd, c, stride, in_step,
-              out_step if divide else (1.0 if out_inv_step is None else out_inv_step), out_qmax,
-              int(divide), out_zp, halo, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "int8_depthwise3x3")
-    int8_depthwise3x3.launches += 1
+    with torch.cuda.device(x.device):
+        code = fn(x.data_ptr(), x_mode, w.data_ptr(), mult.data_ptr(), bias.data_ptr(),
+                  out.data_ptr(), out_mode, b, h, wd, c, stride, in_step,
+                  out_step if divide else (1.0 if out_inv_step is None else out_inv_step),
+                  out_qmax, int(divide), out_zp, halo,
+                  torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(lib, code, "int8_depthwise3x3")
+    _build.count_launch(int8_depthwise3x3, x.device)
     return out
 
 
 int8_depthwise3x3.launches = 0
+int8_depthwise3x3.launches_by_card = {}

@@ -23,19 +23,27 @@ NCCL on cards, gloo on the CPU.  A mesh of size 1 (no process group) changes
 nothing: every function here returns its input.  ``apps.train
 --data-parallel`` runs under ``torch.distributed.run``, which sets the
 environment :func:`make_mesh` reads.
+
+Inference is sharded in one process instead, over a :class:`LocalMesh` of
+the local devices (``spef_tpu/parallel/mesh.py:30-56``: ``make_mesh``,
+``data_sharding``, ``replicated``): :func:`make_local_mesh` lists the
+devices, :func:`data_sharding` gives each its contiguous rows of a batch,
+and :func:`replicated` builds one replica of a predict function (its
+weights) on each of them.  ``engine.ShardedPredict`` runs the replicas.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 __all__ = ["Mesh", "make_mesh", "shard_batch", "replicate", "all_gather_rows",
-           "all_reduce_sum", "all_reduce_gradients"]
+           "all_reduce_sum", "all_reduce_gradients", "LocalMesh", "make_local_mesh",
+           "mesh_or_device", "data_sharding", "replicated", "on_device"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,3 +159,81 @@ def all_reduce_gradients(mesh: Optional[Mesh], module: nn.Module) -> None:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
         offset += g.numel()
 
+
+
+# ---------------------------------------------------------------------------
+# Inference over the local devices, in one process
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalMesh:
+    """A 1-D mesh of local devices, JAX's ``Mesh`` over ``jax.devices()``:
+    the cards of this host, or CPU replicas (the counterpart of the virtual
+    CPU devices JAX's tests run on)."""
+
+    devices: Tuple[torch.device, ...]
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def make_local_mesh(device: Union[str, torch.device] = "cuda",
+                    n_devices: Optional[int] = None) -> LocalMesh:
+    """Every visible card (``"cuda"``), or the first ``n_devices`` of them;
+    one named card (``"cuda:K"``); ``n_devices`` CPU replicas (``"cpu"``,
+    one by default).  Raises where fewer than ``n_devices`` cards are
+    visible, as JAX's ``make_mesh`` asserts."""
+    device = torch.device(device)
+    if device.index is not None:
+        if n_devices not in (None, 1):
+            raise ValueError(f"{device} names one device, not {n_devices}")
+        return LocalMesh((device,))
+    if device.type == "cuda":
+        have = torch.cuda.device_count()
+        n = have if n_devices is None else n_devices
+        if n < 1 or n > have:
+            raise ValueError(f"need {n_devices or 'a'} CUDA device(s), have {have}")
+        return LocalMesh(tuple(torch.device("cuda", i) for i in range(n)))
+    if device.type == "cpu":
+        n = 1 if n_devices is None else n_devices
+        if n < 1:
+            raise ValueError(f"need at least one CPU replica, got {n}")
+        return LocalMesh((device,) * n)
+    raise ValueError(f"no local mesh of {device.type} devices")
+
+
+def mesh_or_device(mesh: Optional[LocalMesh],
+                   device: Union[str, torch.device]) -> LocalMesh:
+    """``mesh``, or without one the one-device mesh of ``device``."""
+    return mesh if mesh is not None else LocalMesh((torch.device(device),))
+
+
+def data_sharding(mesh: LocalMesh, n_rows: int) -> List[slice]:
+    """Each device's contiguous rows of a batch of ``n_rows``, in device
+    order.  The rows must divide over the mesh, as JAX's batch sharding
+    requires."""
+    if n_rows % mesh.size:
+        raise ValueError(f"a window of {n_rows} rows does not divide over the "
+                         f"{mesh.size}-device mesh")
+    n = n_rows // mesh.size
+    return [slice(i * n, (i + 1) * n) for i in range(mesh.size)]
+
+
+def on_device(device: torch.device):
+    """A context in which ``device`` is the current CUDA device (nothing to
+    do for a CPU device)."""
+    import contextlib
+
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def replicated(mesh: LocalMesh, build: Callable[[torch.device], Any]) -> List[Any]:
+    """One replica a device: ``build(device)``, called with that device
+    current."""
+    replicas = []
+    for device in mesh.devices:
+        with on_device(device):
+            replicas.append(build(device))
+    return replicas

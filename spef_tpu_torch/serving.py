@@ -1,22 +1,27 @@
-"""Serving runtime: batched pose inference on one device.
+"""Serving runtime: batched pose inference over the local devices.
 
-Counterpart of ``spef_tpu.serving`` without the mesh:
+Counterpart of ``spef_tpu.serving``:
 
   * :class:`PoseServer`: a fixed-size batch window (requests are zero-padded
-    up to it, so every call runs the same shapes), latency statistics, and
-    on ``cuda`` a page-locked (pinned) host buffer of the window's shape,
-    allocated once, through which each request is copied to the card
+    up to it, so every call runs the same shapes), sharded over a local
+    mesh (``parallel.mesh.make_local_mesh``; JAX's server runs on every
+    local chip) by rows, one replica of the predict function a device
+    (``engine.ShardedPredict``: every device's forward, then one decode of
+    the gathered window on the first), one device without a mesh; latency
+    statistics; on ``cuda`` a page-locked (pinned) host buffer of the
+    window's shape, allocated once, whose rows are copied to each card
     asynchronously;
   * :func:`serve_stream`: pipelined streaming inference over an iterator of
     frame batches, ``depth`` batches in flight (JAX's dispatch ahead, block
-    late).  On CUDA that overlap needs the host-to-device copy to be
-    asynchronous, so the stream keeps a ring of ``depth`` pinned buffers,
-    filled by a staging thread, and issues each copy on a side stream that
-    the compute stream waits on.
+    late), on one device as JAX's.  On CUDA that overlap needs the
+    host-to-device copy to be asynchronous, so the stream keeps a ring of
+    ``depth`` pinned buffers, filled by a staging thread, and issues each
+    copy on a side stream that the compute stream waits on.
 
 On ``device="cpu"`` neither pins memory nor uses streams: that is the path
 the caller asked for.  On ``cuda`` a failure to pin or to launch raises;
-nothing falls back to a pageable copy.
+nothing falls back to a pageable copy, and a failure on any card of a mesh
+raises: nothing runs on fewer cards.
 """
 
 from __future__ import annotations
@@ -25,12 +30,15 @@ import collections
 import queue
 import threading
 import time
-from typing import Callable, Dict, Iterable, Iterator, Tuple, Union
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-__all__ = ["PoseServer", "serve_stream"]
+from spef_tpu_torch.engine import ShardedPredict, per_device
+from spef_tpu_torch.parallel.mesh import LocalMesh, data_sharding, mesh_or_device
+
+__all__ = ["PoseServer", "OversizeRequest", "serve_stream"]
 
 
 def _pinned(shape, dtype: np.dtype) -> torch.Tensor:
@@ -39,8 +47,22 @@ def _pinned(shape, dtype: np.dtype) -> torch.Tensor:
                        pin_memory=True)
 
 
+class OversizeRequest(ValueError, AssertionError):
+    """A request above the serving window: a ``ValueError``, and the
+    ``AssertionError`` JAX's server raises."""
+
+
 class PoseServer:
-    """Batched pose-inference server on one device."""
+    """Batched pose-inference server over a local mesh (one device without
+    one).
+
+    ``mesh``: the window's rows are split over its devices (the window must
+    divide over them), and ``predict_fn`` is then ``build(device) ->
+    predict function``, built once a device, since a predict function
+    closes over one device's weights; ``device`` is then the mesh's first.
+    ``predict_fn`` (the :class:`engine.ShardedPredict` of the replicas) is
+    a predict function on a window anywhere, its pose on ``device``.
+    """
 
     def __init__(
         self,
@@ -48,36 +70,38 @@ class PoseServer:
         img_shape: Tuple[int, int, int],
         max_batch: int = 256,
         device: Union[str, torch.device] = "cuda",
+        mesh: Optional[LocalMesh] = None,
     ):
-        self.predict_fn = predict_fn
         self.img_shape = tuple(img_shape)
         self.max_batch = max_batch
-        self.device = torch.device(device)
+        self.mesh = mesh
+        build = per_device(predict_fn, mesh)
+        mesh = mesh_or_device(mesh, device)
+        data_sharding(mesh, max_batch)  # the window must divide over the mesh
+        self.device = mesh.devices[0]
+        self._sharded = self.predict_fn = ShardedPredict.build(mesh, build)
         self._latencies: collections.deque = collections.deque(maxlen=1000)
         # On cuda, the window's pinned staging buffer of uint8 frames.
         self._staging = (_pinned((max_batch, *self.img_shape), np.uint8)
                          if self.device.type == "cuda" else None)
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def warmup(self) -> float:
         """Run the window once (kernel builds, cuDNN plans); returns seconds."""
-        dummy = torch.zeros((self.max_batch, *self.img_shape), dtype=torch.uint8,
-                            device=self.device)
+        shards = self._sharded.scatter(
+            torch.zeros((self.max_batch, *self.img_shape), dtype=torch.uint8))
+        self._sharded.synchronize()
         t0 = time.perf_counter()
-        self.predict_fn(dummy)
-        self._sync()
+        self._sharded.run(shards)
+        self._sharded.synchronize()
         return time.perf_counter() - t0
 
-    def _to_device(self, images: np.ndarray) -> torch.Tensor:
-        """The request padded to the window, on the device.  On ``cuda``:
-        copied into the pinned buffer with its tail zeroed (the pad), then
-        sent with ``non_blocking=True``; ``predict`` synchronizes before the
-        buffer is written again."""
+    def _window(self, images: np.ndarray) -> torch.Tensor:
+        """The request padded to the window, on the host.  On ``cuda``: the
+        pinned buffer, the request copied in and its tail zeroed (the pad);
+        each card's rows are then sent with ``non_blocking=True``, and
+        ``predict`` synchronizes before the buffer is written again."""
         n = images.shape[0]
-        if self.device.type != "cuda":
+        if self._staging is None:
             if n < self.max_batch:
                 pad = np.zeros((self.max_batch - n, *self.img_shape), images.dtype)
                 images = np.concatenate([images, pad])
@@ -87,24 +111,26 @@ class PoseServer:
         host = self._staging.numpy()
         host[:n] = images
         host[n:] = 0
-        return self._staging.to(self.device, non_blocking=True)
+        return self._staging
 
     def predict(self, images: np.ndarray) -> Tuple[Dict[str, np.ndarray], float]:
         """Serve one request (any batch size <= max_batch): pads to the
         window, returns host numpy results and the latency in ms.  The
         latency is JAX's: the host clock from before the copy (here the
         staging copy into the pinned buffer, which also writes the pad) to
-        after the results are ready on the device."""
+        after the results are ready on every device (the decode ran on the
+        first, on the window gathered there); the request's rows are then
+        copied to the host."""
         images = np.asarray(images)
         n = images.shape[0]
         if n > self.max_batch:
-            raise ValueError(f"batch {n} > serving window {self.max_batch}")
+            raise OversizeRequest(f"batch {n} > serving window {self.max_batch}")
         t0 = time.perf_counter()
-        out = self.predict_fn(self._to_device(images))
-        self._sync()
+        pose = self._sharded.run(self._sharded.scatter(self._window(images)))
+        self._sharded.synchronize()
         latency_ms = (time.perf_counter() - t0) * 1e3
         self._latencies.append(latency_ms)
-        return {k: v[:n].cpu().numpy() for k, v in out.items()}, latency_ms
+        return {k: v[:n].cpu().numpy() for k, v in pose.items()}, latency_ms
 
     def stats(self) -> Dict[str, float]:
         lat = np.asarray(self._latencies) if self._latencies else np.zeros(1)
@@ -113,7 +139,7 @@ class PoseServer:
             "p95_ms": float(np.percentile(lat, 95)),
             "mean_ms": float(lat.mean()),
             "requests": len(self._latencies),
-            "devices": 1,
+            "devices": self._sharded.mesh.size,
         }
 
 

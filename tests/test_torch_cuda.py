@@ -80,17 +80,8 @@ MM_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(MM_CASES))
-@pytest.mark.parametrize("mnk", [
-    (1000, 96, 16), (333, 160, 960), (64, 1280, 320),
-    (1001, 16, 24), (777, 24, 16),  # K 24 and 16 padded to the mma depth, N 16 and 24
-    (5000, 96, 16),                  # block 1's expand shape, many row tiles a block
-    (130, 384, 576),                 # two column slices, weights resident
-    (129, 24, 27),                   # K 27: byte copies of x
-])
-def test_k1_kernel_matches_plain(dev, case, mnk):
-    """Integer input bit for bit; bf16 input under the tie rule (M is no
-    multiple of any tile)."""
+def _k1_operands(case, mnk, dev):
+    """K1's (args, kw) of one ``MM_CASES`` case at (M, N, K), on ``dev``."""
     m, n, k = mnk
     dtype, kw = MM_CASES[case]
     g = torch.Generator().manual_seed(m + n + k)
@@ -104,7 +95,21 @@ def test_k1_kernel_matches_plain(dev, case, mnk):
     bias = torch.randn(n, generator=g) * 0.1
     if "res_ratio" in kw:
         kw = dict(kw, residual=torch.randint(-7, 8, (m, n), generator=g).to(torch.int8).to(dev))
-    args = [t.to(dev) for t in (x, w, mult, bias)]
+    return [t.to(dev) for t in (x, w, mult, bias)], kw
+
+
+@pytest.mark.parametrize("case", sorted(MM_CASES))
+@pytest.mark.parametrize("mnk", [
+    (1000, 96, 16), (333, 160, 960), (64, 1280, 320),
+    (1001, 16, 24), (777, 24, 16),  # K 24 and 16 padded to the mma depth, N 16 and 24
+    (5000, 96, 16),                  # block 1's expand shape, many row tiles a block
+    (130, 384, 576),                 # two column slices, weights resident
+    (129, 24, 27),                   # K 27: byte copies of x
+])
+def test_k1_kernel_matches_plain(dev, case, mnk):
+    """Integer input bit for bit; bf16 input under the tie rule (M is no
+    multiple of any tile)."""
+    args, kw = _k1_operands(case, mnk, dev)
     before = int8_matmul_requant.launches
     got = int8_matmul_requant(*args, **kw)
     torch.cuda.synchronize()
@@ -132,6 +137,22 @@ DW_CASES = {
 }
 
 
+def _k2_operands(case, shape, dev):
+    """K2's (args, kw) of one ``DW_CASES`` case at ``shape``, on ``dev``."""
+    stride, dtype, kw = DW_CASES[case]
+    kw = {"in_step": 0.05, **kw, "stride": stride}
+    g = torch.Generator().manual_seed(sum(shape))
+    if dtype == torch.float32:
+        x = torch.rand(shape, generator=g) * 4
+    else:
+        x = torch.randint(-128, 128, shape, generator=g).to(torch.int8)
+    c = shape[-1]
+    w = torch.randint(-8, 8, (3, 3, c), generator=g).to(torch.int8)
+    mult = torch.rand(c, generator=g) * 1e-2
+    bias = torch.randn(c, generator=g) * 0.05
+    return [t.to(dev) for t in (x, w, mult, bias)], kw
+
+
 @pytest.mark.parametrize("case", sorted(DW_CASES))
 @pytest.mark.parametrize("shape", [
     (2, 120, 192, 32), (3, 15, 24, 960), (1, 7, 5, 3),
@@ -142,23 +163,12 @@ DW_CASES = {
     (2, 13, 20, 20),   # float32 by fours, int8 one channel a thread
 ])
 def test_k2_kernel_matches_plain(dev, case, shape):
-    stride, dtype, kw = DW_CASES[case]
-    kw = {"in_step": 0.05, **kw}
-    g = torch.Generator().manual_seed(sum(shape))
-    if dtype == torch.float32:
-        x = torch.rand(shape, generator=g) * 4
-    else:
-        x = torch.randint(-128, 128, shape, generator=g).to(torch.int8)
-    c = shape[-1]
-    w = torch.randint(-8, 8, (3, 3, c), generator=g).to(torch.int8)
-    mult = torch.rand(c, generator=g) * 1e-2
-    bias = torch.randn(c, generator=g) * 0.05
-    args = [t.to(dev) for t in (x, w, mult, bias)]
+    args, kw = _k2_operands(case, shape, dev)
     before = int8_depthwise3x3.launches
-    got = int8_depthwise3x3(*args, stride=stride, **kw)
+    got = int8_depthwise3x3(*args, **kw)
     torch.cuda.synchronize()
     assert int8_depthwise3x3.launches == before + 1
-    _same(got, int8_depthwise3x3_plain(*args, stride=stride, **kw))
+    _same(got, int8_depthwise3x3_plain(*args, **kw))
 
 
 STEM_CASES = {
@@ -173,23 +183,28 @@ STEM_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(STEM_CASES))
-def test_k3_kernel_matches_plain(dev, case):
+def _k3_operands(case, dev):
+    """K3's (args, kw) of one ``STEM_CASES`` case, on ``dev``."""
     shape, cout, qmax = STEM_CASES[case]
     g = torch.Generator().manual_seed(cout + shape[1])
     frames = torch.randint(0, 256, shape, generator=g).to(torch.uint8)
     w = torch.randint(-8, 8, (3, 3, 3, cout), generator=g).to(torch.int8)
     mult = torch.rand(cout, generator=g) * 2e-2 / 255.0
     bias = torch.randn(cout, generator=g) * 0.05
-    args = [t.to(dev) for t in (frames, w, mult, bias)]
+    return [t.to(dev) for t in (frames, w, mult, bias)], dict(inv_step=qmax / 0.3, qmax=qmax)
+
+
+@pytest.mark.parametrize("case", sorted(STEM_CASES))
+def test_k3_kernel_matches_plain(dev, case):
+    args, kw = _k3_operands(case, dev)
     before = fused_stem.launches
-    got = fused_stem(*args, inv_step=qmax / 0.3, qmax=qmax)
+    got = fused_stem(*args, **kw)
     torch.cuda.synchronize()
     assert fused_stem.launches == before + 1
-    _same(got, fused_stem_plain(*args, inv_step=qmax / 0.3, qmax=qmax))
+    _same(got, fused_stem_plain(*args, **kw))
     assert got.unique().numel() > 16
     packed = pack_stem_weights(args[1])
-    _same(fused_stem(*args, inv_step=qmax / 0.3, qmax=qmax, packed=packed), got)
+    _same(fused_stem(*args, **kw, packed=packed), got)
 
 
 K4_CASES = {
@@ -237,8 +252,8 @@ def _k4_same(got, x, wts, kw, exact=False):
     assert mismatches <= 0.005 * got.numel(), mismatches
 
 
-@pytest.mark.parametrize("case", sorted(K4_CASES))
-def test_k4_kernel_matches_plain(dev, case):
+def _k4_operands(case, dev):
+    """K4's ((x, wts), kw) of one ``K4_CASES`` case, on ``dev``."""
     shape, ch, cout, stride, unsigned, kwargs = K4_CASES[case]
     g = torch.Generator().manual_seed(sum(shape) + ch)
     lo, hi = (-8, 8) if kwargs.get("exact") else ((-128, 128) if unsigned else (-64, 64))
@@ -246,17 +261,76 @@ def test_k4_kernel_matches_plain(dev, case):
     wts, kw = random_mbconv_operands(g, shape[-1], ch, cout, **kwargs)
     wts = {k: v.to(dev) for k, v in wts.items()}
     kw.update(stride=stride, in_unsigned=unsigned)
+    return (x, wts), kw
+
+
+@pytest.mark.parametrize("case", sorted(K4_CASES))
+def test_k4_kernel_matches_plain(dev, case):
+    (x, wts), kw = _k4_operands(case, dev)
     before = fused_mbconv.launches
     got = fused_mbconv(x, wts, **kw)
     torch.cuda.synchronize()
     assert fused_mbconv.launches == before + 1
-    _k4_same(got, x, wts, kw, exact=bool(kwargs.get("exact")))
+    _k4_same(got, x, wts, kw, exact=bool(K4_CASES[case][-1].get("exact")))
     assert got.unique().numel() > 16
     # Weights packed ahead, as a built forward holds them, give the same bits.
     packed = pack_mbconv_weights(wts, dw_grid=kw["inv_d"] is not None)
     _same(fused_mbconv(x, packed, **kw), got)
     with pytest.raises(ValueError):  # packed for the other projection
         fused_mbconv(x, pack_mbconv_weights(wts, dw_grid=kw["inv_d"] is None), **kw)
+
+
+@pytest.fixture
+def cards():
+    """Every visible card; skips below two."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices: a kernel launched on a card that is not "
+                    "the current one")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+ON_ANOTHER_CARD = [  # (kernel, case, shape): K1 both ways, K4 bit for bit and under the tie rule
+    ("int8_matmul_requant", "int8_relu", (5000, 96, 16)),
+    ("int8_matmul_requant", "bf16_in_residual", (333, 160, 960)),
+    ("int8_depthwise3x3", "s2_bits_in_bits_out", (2, 120, 192, 32)),
+    ("fused_stem", "flagship_bits", None),
+    ("fused_mbconv", "grids_s1_residual_ratio", None),
+    ("fused_mbconv", "b1_s2", None),
+]
+
+
+@pytest.mark.parametrize("kernel,case,shape", ON_ANOTHER_CARD)
+def test_kernels_launch_on_a_card_that_is_not_current(cards, kernel, case, shape):
+    """K1-K4 on the last card while ``cuda:0`` is the current device (a
+    replica of a sharded server): the wrapper launches on the operands'
+    card, on its stream, with its SM count and occupancy (and counts the
+    launch as that card's), and the result holds to the plain version
+    under the kernel's contract."""
+    last = cards[-1]
+    with torch.cuda.device(0):
+        if kernel == "int8_matmul_requant":
+            args, kw = _k1_operands(case, shape, last)
+        elif kernel == "int8_depthwise3x3":
+            args, kw = _k2_operands(case, shape, last)
+        elif kernel == "fused_stem":
+            args, kw = _k3_operands(case, last)
+        else:
+            args, kw = _k4_operands(case, last)
+        fn = {"int8_matmul_requant": int8_matmul_requant, "int8_depthwise3x3": int8_depthwise3x3,
+              "fused_stem": fused_stem, "fused_mbconv": fused_mbconv}[kernel]
+        before, on_last = fn.launches, fn.launches_by_card.get(last.index, 0)
+        got = fn(*args, **kw)
+        torch.cuda.synchronize(last)
+        assert torch.cuda.current_device() == 0
+    assert fn.launches == before + 1 and got.device == last
+    assert fn.launches_by_card[last.index] == on_last + 1
+    if kernel == "int8_matmul_requant":
+        check_mm(got, args, kw)
+    elif kernel == "fused_mbconv":
+        _k4_same(got, *args, kw)
+    else:
+        _same(got, (int8_depthwise3x3_plain if kernel == "int8_depthwise3x3"
+                    else fused_stem_plain)(*args, **kw))
 
 
 def test_k4_python_tile_model_mirrors_the_kernel_launcher(dev):
@@ -658,6 +732,38 @@ def test_pose_server_pinned_staging_pads_on_the_card(dev):
     want = predict(torch.from_numpy(padded).to(dev))
     for k in got:
         np.testing.assert_array_equal(got[k], want[k][:5].cpu().numpy(), err_msg=k)
+
+
+def test_pose_server_over_every_card_matches_one_card(cards):
+    """``PoseServer`` over every card (``make_local_mesh("cuda")``) on the
+    fused executor: a partial request through a window of 8 frames a card,
+    each card's rows sent from the pinned buffer to it and served by its
+    own replica (1 K3, 17 K4 and 1 K1 launch on each card, as each
+    wrapper's ``launches_by_card`` counts them), the logits gathered to the
+    first card and decoded there once: every output bit for bit the
+    one-card server's on the same frames."""
+    from spef_tpu_torch.parallel.mesh import make_local_mesh
+    from spef_tpu_torch.serving import PoseServer
+
+    n = len(cards)
+    sharded = PoseServer(lambda d: _flagship_fused_predict(d)[0], (240, 384, 3),
+                         max_batch=8 * n, mesh=make_local_mesh("cuda"))
+    assert sharded.stats()["devices"] == n and sharded.device == cards[0]
+    one = PoseServer(_flagship_fused_predict(cards[0])[0], (240, 384, 3), max_batch=8 * n,
+                     device=cards[0])
+    frames = np.random.RandomState(11).randint(0, 256, (8 * n - 3, 240, 384, 3), np.uint8)
+    counters = (fused_stem, fused_mbconv, int8_matmul_requant)
+    before = [f.launches for f in counters]
+    by_card = [dict(f.launches_by_card) for f in counters]
+    got, ms = sharded.predict(frames)
+    assert [f.launches - b for f, b in zip(counters, before)] == [n, 17 * n, n]
+    for f, b, per in zip(counters, by_card, (1, 17, 1)):
+        assert {i: f.launches_by_card.get(i, 0) - b.get(i, 0) for i in range(n)} == {
+            i: per for i in range(n)}, f.__name__
+    want, _ = one.predict(frames)
+    assert ms > 0 and sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def _f32_predict(where):
