@@ -70,14 +70,15 @@ on its own lines; any failure exits nonzero:
      events); its logits within 0.3 of the plain backend's and of the
      ``layer`` executor's on the same graph, its distances from
      ``int8_forward`` and the QAT forward printed;
-  8. accuracy on the flagship's test split: the 2,000 D-SPEED test frames
-     (240x384, seed 1001) written by the port's writer
-     (``data/synthetic.py::_create_test_split``: the 22,000 earlier frames'
-     draws replayed, the frames rendered and written as PNG by worker
-     processes) into ``build/`` and removed at the end; the float flagship
-     evaluated by ``python -m spef_tpu_torch.apps.eval`` on them (its test
-     ESA within 0.002 of the recorded ``eval_score_error.json``); the
-     committed int8 graph evaluated on the same loader batches by the
+  8. accuracy on the flagship's valid and test splits: the 2,000 + 2,000
+     D-SPEED frames (240x384, seed 1001) written by the port's writer
+     (``data/synthetic.py::_create_eval_splits``: the 20,000 train frames'
+     draws replayed once, then the valid and test frames rendered and
+     written as PNG by worker processes) into ``build/`` and removed at the
+     end, with the seconds this takes; the float flagship evaluated by
+     ``python -m spef_tpu_torch.apps.eval`` on each (its test ESA within
+     0.002 of the recorded ``eval_score_error.json``, its valid ESA within
+     0.003 of the recorded ``score_error.json``, 0.12932); the committed int8 graph evaluated on the same loader batches by the
      ``layer``, ``fused`` and ``carry`` executors on the kernels, the
      counters set to 0 before each and read after (per-forward launches
      times the batches); the carry's ESA within 0.003 of JAX's
@@ -1803,6 +1804,7 @@ def phase_deploy_build(torch, np, dev, still, cfg, root, card):
 SPLIT = {"n_train": 20000, "n_valid": 2000, "n_test": 2000}
 EVAL_BATCH = 32  # apps.eval's default
 FLOAT_ESA_TOL = 0.002  # against the recorded eval_score_error.json
+VALID_ESA_TOL = 0.003  # the valid split's, against the recorded score_error.json
 CARRY_ESA_TOL = 0.003  # against JAX's int8_carry on the same graph and frames
 EXECUTOR_ESA_TOL = 0.01  # layer's and fused's against the carry's
 ESA_RECORD = os.path.join(REPO, "spef_tpu_torch", "assets", "flagship_test_esa.json")
@@ -1829,22 +1831,26 @@ def _timed(label, fn, tag="accuracy"):
     return out
 
 
-def write_test_split(root):
-    """The flagship's 2,000-frame test split, written by the port's writer
-    under ``root`` (phases 8 and 12 read it); returns its still root."""
-    from spef_tpu_torch.data.synthetic import _create_test_split, render_workers
+def write_eval_splits(root):
+    """The flagship's 2,000-frame valid and test splits, written by the
+    port's writer in ``render_workers()`` processes: the 20,000 train
+    frames' draws replayed once, then the valid split under ``root/valid``
+    and the test split under ``root`` (phases 8 and 12 read it).  Returns
+    (test still root, valid still root)."""
+    from spef_tpu_torch.data.synthetic import _create_eval_splits, render_workers
 
     workers = render_workers()
-    return _timed(
-        f"test split written ({SPLIT['n_test']} frames at 240x384, seed 1001, the "
-        f"{SPLIT['n_train']} + {SPLIT['n_valid']} earlier frames' draws replayed; "
+    valid, test = _timed(
+        f"valid and test splits written ({SPLIT['n_valid']} + {SPLIT['n_test']} frames at "
+        f"240x384, seed 1001, the {SPLIT['n_train']} train frames' draws replayed once; "
         f"{workers} render processes)",
-        lambda: _create_test_split(root, img_size=(240, 384), seed=1001, workers=workers,
-                                   **SPLIT))
+        lambda: _create_eval_splits(os.path.join(root, "valid"), root, img_size=(240, 384),
+                                    seed=1001, workers=workers, **SPLIT))
+    return test, valid
 
 
-def phase_accuracy(torch, np, dev, still):
-    """The flagship's test split (``write_test_split``) loaded through the
+def phase_accuracy(torch, np, dev, still, valid_still=None):
+    """The flagship's test split (``write_eval_splits``) loaded through the
     port's loader; the float flagship evaluated by ``apps.eval`` and the
     committed int8 graph by the three executors on the kernels; each ESA
     held to its reference; the executors' per-frame pose distances; each
@@ -1909,6 +1915,21 @@ def phase_accuracy(torch, np, dev, still):
     if abs(float_esa - recorded) > FLOAT_ESA_TOL:
         failed.append(f"float test ESA {float_esa} is {abs(float_esa - recorded):.5f} from "
                       f"the recorded {recorded} (at most {FLOAT_ESA_TOL})")
+    if valid_still is not None:
+        # The valid split: the asset's own score_error.json, never scored by
+        # the port before.
+        with open(os.path.join(FLAGSHIP, "score_error.json")) as f:
+            recorded_valid = json.load(f)["scores"]["valid"]["esa"][0]
+        t0 = time.perf_counter()
+        score, error = eval_app.main(["--experiment", exp, "--data", valid_still])
+        valid_esa = score["valid"]["esa"][0]
+        log(f"[accuracy] float valid ESA {valid_esa:.6f} (recorded {recorded_valid:.6f}, d "
+            f"{abs(valid_esa - recorded_valid):.6f}, at most {VALID_ESA_TOL}), ori "
+            f"{error['valid']['ori'][0]:.3f} deg, pos {error['valid']['pos'][0]:.4f} m; "
+            f"apps.eval on the valid split: {time.perf_counter() - t0:.2f} s")
+        if not abs(valid_esa - recorded_valid) <= VALID_ESA_TOL:
+            failed.append(f"float valid ESA {valid_esa} is {abs(valid_esa - recorded_valid):.5f} "
+                          f"from the recorded {recorded_valid} (at most {VALID_ESA_TOL})")
 
     # Int8: the committed graph on the same loader batches.
     data, splits = load_dataset(still, EVAL_BATCH, (240, 384))
@@ -3840,8 +3861,8 @@ def main() -> int:
         shutil.rmtree(exp_dir, ignore_errors=True)
     split_root = os.path.join(REPO, "build", f"chip_smoke_dspeed_{os.getpid()}")
     try:
-        still = write_test_split(split_root)
-        accuracy_launches, batches = phase_accuracy(torch, np, dev, still)
+        still, valid_still = write_eval_splits(split_root)
+        accuracy_launches, batches = phase_accuracy(torch, np, dev, still, valid_still)
         phase_keypoints(torch, np, dev, still, batches)
         del batches
         deploy_launches, deploy_checks = phase_deploy_serve(torch, np, dev, still)

@@ -253,14 +253,47 @@ def _create_test_split(
     splits' draws (their poses, then one noise field a frame) are replayed in
     the writer's order, not rendered.  ``workers`` > 1 renders and writes in
     that many processes; the draws stay here, in order."""
-    rng = np.random.RandomState(seed)
-    for n in (n_train, n_valid):
-        generate_positions(rng, n, camera)
-        for _ in range(n):
-            rng.randn(*img_size, 1)
+    rng = _replayed(seed, (n_train, n_valid), img_size, camera)
     still = os.path.join(root, "still")
     _write_still_split(still, "test", n_test, rng, img_size, camera, workers)
     return still
+
+
+def _create_eval_splits(
+    valid_root: str,
+    test_root: str,
+    n_train: int,
+    n_valid: int,
+    n_test: int,
+    img_size: Tuple[int, int] = (1200, 1920),
+    seed: int = 1001,
+    camera: Camera = DSPEED_CAMERA,
+    workers: int = 1,
+) -> Tuple[str, str]:
+    """The valid and test splits of ``create_synthetic_dataset(root, n_train,
+    n_valid, n_test, img_size, seed, camera)``, and only them: the train
+    split's draws are replayed once, as :func:`_create_test_split` replays
+    the earlier ones, then the valid split is written under
+    ``valid_root/still`` and the test split under ``test_root/still`` (one
+    root may hold both), in the writer's order.  ``workers`` > 1 renders and
+    writes in that many processes.  Returns the two still roots."""
+    rng = _replayed(seed, (n_train,), img_size, camera)
+    valid, test = os.path.join(valid_root, "still"), os.path.join(test_root, "still")
+    _write_still_split(valid, "valid", n_valid, rng, img_size, camera, workers)
+    _write_still_split(test, "test", n_test, rng, img_size, camera, workers)
+    return valid, test
+
+
+def _replayed(seed: int, counts: Tuple[int, ...], img_size: Tuple[int, int],
+              camera: Camera) -> np.random.RandomState:
+    """The writer's generator after the splits of ``counts``: their poses,
+    then one noise field a frame, drawn in the writer's order and dropped."""
+    rng = np.random.RandomState(seed)
+    for n in counts:
+        generate_positions(rng, n, camera)
+        for _ in range(n):
+            rng.randn(*img_size, 1)
+    return rng
 
 
 def create_crop_dataset(

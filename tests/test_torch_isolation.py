@@ -53,3 +53,22 @@ def test_package_sources_name_no_jax_import():
                                    "pandas"):
                             offenders.append(f"{path}:{i}: {s}")
     assert not offenders, offenders
+
+
+def test_accuracy_suite_imports_only_the_port_torch_numpy_and_the_standard_library():
+    """``apps/accuracy_suite.py`` drives the port's own CLIs: its imports,
+    at any depth of the file, are the port, torch, numpy and the standard
+    library (the probe above imports it with every other module)."""
+    import ast
+
+    path = os.path.join(REPO, "spef_tpu_torch", "apps", "accuracy_suite.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    allowed = {"spef_tpu_torch", "torch", "numpy"} | set(sys.stdlib_module_names)
+    assert "spef_tpu_torch" in names and names <= allowed, sorted(names - allowed)

@@ -8,6 +8,10 @@ against the JAX writers (``cv2.imwrite``), at a tiny size.
   * ``_create_test_split``: the writer's test split, with the train and
     valid splits' draws replayed and not rendered, in one process and with
     the frames rendered and written by two worker processes.
+  * ``_create_eval_splits``: the writer's valid and test splits, the
+    train split's draws replayed once, with one and two processes, in two
+    roots: the full writer's files byte for byte, and JAX's writer's pixels
+    and ``pose.json``.
   * ``create_synthetic_dataset(workers=2)``: the files of one process.
 
 Tolerance: none; every comparison is exact.
@@ -83,6 +87,23 @@ def test_test_split_replay_gives_the_writers_test_split(written, tmp_path, worke
     still = synthetic._create_test_split(str(tmp_path), 3, 2, 4, img_size=HW, workers=workers)
     assert sorted(os.listdir(still)) == ["test"]  # train and valid are not rendered
     assert len(_same_split(os.path.join(still, "test"), os.path.join(jax_still, "test"))) == 4
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_valid_split_replay_gives_the_writers_valid_split(written, tmp_path, workers):
+    _, port_still, jax_still = written
+    valid, test = synthetic._create_eval_splits(str(tmp_path / "v"), str(tmp_path / "t"), 3, 2,
+                                                4, img_size=HW, workers=workers)
+    assert sorted(os.listdir(valid)) == ["valid"]  # train is not rendered
+    assert sorted(os.listdir(test)) == ["test"]
+    for split, still, n in (("valid", valid, 2), ("test", test, 4)):
+        mine, full = os.path.join(still, split), os.path.join(port_still, split)
+        labels = _same_split(mine, os.path.join(jax_still, split))
+        assert len(labels) == n
+        for name in ["pose.json"] + [os.path.join("images", t["filename"]) for t in labels]:
+            with open(os.path.join(mine, name), "rb") as a, \
+                    open(os.path.join(full, name), "rb") as b:
+                assert a.read() == b.read(), (split, name)
 
 
 def test_create_synthetic_dataset_in_worker_processes(written, tmp_path):
