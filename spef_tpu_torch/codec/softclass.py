@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from spef_tpu_torch.pose.rotations import euler2quat, normalize_quaternion
+from spef_tpu_torch.utils import profiling
 
 __all__ = ["OrientationSoftClassification", "PositionSoftClassification"]
 
@@ -104,15 +105,18 @@ class OrientationSoftClassification:
         """
         _exact_f32_matmuls()
         squeeze = probs.dim() == 1
-        p = torch.atleast_2d(probs).float()
-        h = self.histogram
-        a = torch.einsum("bn,ni,nj->bij", p, h, h)
-        _, v = torch.linalg.eigh(a)  # ascending eigenvalues
-        q_avg = normalize_quaternion(v[..., :, -1])
-        # ``inv_ex``: a singular ``A`` (a one-hot PDF) gives non-finite
-        # values as JAX's ``inv`` does, where ``inv`` raises; and it reads
-        # no ``info`` back, so the decode does not sync the host for it.
-        h_inv = torch.linalg.inv_ex(a).inverse
+        # Named for the ``eigh``, the decode's host synchronization.
+        with profiling.span("decode.eigh"):
+            p = torch.atleast_2d(probs).float()
+            h = self.histogram
+            a = torch.einsum("bn,ni,nj->bij", p, h, h)
+            _, v = torch.linalg.eigh(a)  # ascending eigenvalues
+            q_avg = normalize_quaternion(v[..., :, -1])
+            # ``inv_ex``: a singular ``A`` (a one-hot PDF) gives non-finite
+            # values as JAX's ``inv`` does, where ``inv`` raises; and it
+            # reads no ``info`` back, so the decode does not sync the host
+            # for it.
+            h_inv = torch.linalg.inv_ex(a).inverse
         if squeeze:
             return q_avg[0], h_inv[0]
         return q_avg, h_inv
@@ -164,8 +168,9 @@ class PositionSoftClassification:
     def decode(self, probs: torch.Tensor) -> torch.Tensor:
         """Probability-weighted mean of bin centers, ``(..., n_bins) -> (..., 3)``."""
         _exact_f32_matmuls()
-        probs = probs.float()
-        weighted = probs @ self.histogram
-        return weighted / probs.sum(dim=-1, keepdim=True)
+        with profiling.span("decode.pos"):
+            probs = probs.float()
+            weighted = probs @ self.histogram
+            return weighted / probs.sum(dim=-1, keepdim=True)
 
     decode_batch = decode

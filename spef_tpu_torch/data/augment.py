@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from spef_tpu_torch.data.camera import Camera
 from spef_tpu_torch.pose.rotations import dcm2quat, euler2dcm, multiply_quaternions
+from spef_tpu_torch.utils import profiling
 
 __all__ = [
     "yaw_rotation_augment", "draw_yaw_rotation", "apply_yaw_rotation",
@@ -267,15 +268,19 @@ def train_augment(generator: torch.Generator, images: torch.Tensor, ori: torch.T
 
     ``rows = (rank, size)``: the batch is rank ``rank``'s share of a global
     batch ``size`` times larger (data parallel): the values are drawn for
-    the global batch and this share's rows of them applied."""
+    the global batch and this share's rows of them applied.  While a
+    profiler runs, the draws and their application are the span
+    ``spef.augment``."""
     rank, size = rows or (0, 1)
     b = images.shape[0]
     share = slice(rank * b, (rank + 1) * b)
-    if rot_augment:
-        apply, deg = draw_yaw_rotation(generator, b * size)
-        images, ori, pos = apply_yaw_rotation(images, ori, pos, camera, apply[share], deg[share])
-    if other_augment:
-        images = apply_gaussian_blur(images, draw_gaussian_blur(generator))
-        jitter = draw_color_jitter(generator, b * size)
-        images = apply_color_jitter(images, **{k: v[share] for k, v in jitter.items()})
+    with profiling.span("augment"):
+        if rot_augment:
+            apply, deg = draw_yaw_rotation(generator, b * size)
+            images, ori, pos = apply_yaw_rotation(images, ori, pos, camera, apply[share],
+                                                  deg[share])
+        if other_augment:
+            images = apply_gaussian_blur(images, draw_gaussian_blur(generator))
+            jitter = draw_color_jitter(generator, b * size)
+            images = apply_color_jitter(images, **{k: v[share] for k, v in jitter.items()})
     return images, ori, pos

@@ -46,6 +46,7 @@ import torch
 from spef_tpu_torch.codec.facade import SPEUtils
 from spef_tpu_torch.parallel.mesh import (LocalMesh, data_sharding, mesh_or_device, on_device,
                                           replicated)
+from spef_tpu_torch.utils import profiling
 
 __all__ = ["SPETorch", "SPECropRefine", "ShardedPredict", "StagedPredict", "per_device",
            "build_predict_fn", "build_crop_refine_fn", "discover_engine_variants",
@@ -93,23 +94,27 @@ def build_predict_fn(
     NHWC on the model's device, uint8 [0, 255] or float [0, 1].  A
     ``forward_fn`` whose ``takes_uint8`` attribute is true folds the
     normalization itself and gets uint8 frames as they are.  The last
-    activation and the decode are the second stage.
+    activation and the decode are the second stage.  While a profiler
+    runs, the stages are spans ``spef.predict.launch`` and
+    ``spef.predict.finish``.
     """
     fwd = forward_fn or model
     normalize = not getattr(fwd, "takes_uint8", False)
 
     @torch.inference_mode()
     def launch(images: torch.Tensor) -> Pose:
-        if normalize and images.dtype == torch.uint8:
-            # An IEEE division, as JAX's: a CUDA tensor divided by a Python
-            # scalar becomes a multiply by the reciprocal.
-            images = images.float() / torch.tensor(255.0, device=images.device)
-        return _raw_to_pose(spe_utils, fwd(images))
+        with profiling.span("predict.launch"):
+            if normalize and images.dtype == torch.uint8:
+                # An IEEE division, as JAX's: a CUDA tensor divided by a
+                # Python scalar becomes a multiply by the reciprocal.
+                images = images.float() / torch.tensor(255.0, device=images.device)
+            return _raw_to_pose(spe_utils, fwd(images))
 
     @torch.inference_mode()
     def finish(pose: Pose) -> Pose:
-        pose = spe_utils.last_activ(pose)
-        return spe_utils.decode(pose) if decode else pose
+        with profiling.span("predict.finish"):
+            pose = spe_utils.last_activ(pose)
+            return spe_utils.decode(pose) if decode else pose
 
     return StagedPredict(launch, finish)
 
@@ -146,18 +151,20 @@ def build_crop_refine_fn(
 
     @torch.inference_mode()
     def launch(images: torch.Tensor) -> Pose:
-        if images.dtype == torch.uint8:
-            images = images.float() / torch.full((), 255.0, device=images.device)
-        pipe.crop_hw = tuple(crop_hw) if crop_hw is not None else tuple(images.shape[1:3])
-        return pipe(images)
+        with profiling.span("predict.launch"):
+            if images.dtype == torch.uint8:
+                images = images.float() / torch.full((), 255.0, device=images.device)
+            pipe.crop_hw = tuple(crop_hw) if crop_hw is not None else tuple(images.shape[1:3])
+            return pipe(images)
 
     @torch.inference_mode()
     def finish(pose: Pose) -> Pose:
-        if decode:
-            pose.update(spe_utils.keypoints.decode_batch(
-                pose["keypoints"], ransac=spe_utils.keypoints_ransac,
-                border_gate=spe_utils.keypoints_border_gate))
-        return pose
+        with profiling.span("predict.finish"):
+            if decode:
+                pose.update(spe_utils.keypoints.decode_batch(
+                    pose["keypoints"], ransac=spe_utils.keypoints_ransac,
+                    border_gate=spe_utils.keypoints_border_gate))
+            return pose
 
     return StagedPredict(launch, finish)
 

@@ -27,6 +27,7 @@ raises: nothing runs on fewer cards.
 from __future__ import annotations
 
 import collections
+import itertools
 import queue
 import threading
 import time
@@ -37,6 +38,7 @@ import torch
 
 from spef_tpu_torch.engine import ShardedPredict, per_device
 from spef_tpu_torch.parallel.mesh import LocalMesh, data_sharding, mesh_or_device
+from spef_tpu_torch.utils import profiling
 
 __all__ = ["PoseServer", "OversizeRequest", "serve_stream"]
 
@@ -143,13 +145,23 @@ class PoseServer:
         }
 
 
+_END = object()  # the end of a stager's batches
+
+
 class _Stager:
     """A thread that copies each host batch into the next of a ring of
     ``depth`` pinned buffers, ahead of the consumer: it writes a buffer
     again only after the event of the copy that last read it (handed back
     by :meth:`release`) has completed.  The caller's thread is free to
     dispatch the forwards meanwhile (numpy's copy releases the GIL), and it
-    blocks wherever a predict function synchronizes with the card."""
+    blocks wherever a predict function synchronizes with the card.
+
+    While a profiler runs, the thread's work goes into spans
+    ``spef.stage.{pull,slot_wait,copy}`` and, since a profiler of one
+    thread does not see them, the wait for a buffer and the copy into
+    counters (``stage.slot_wait``, ``stage.copy``: how many, and their
+    ``_ns``; ``stage.copy_bytes``); the consumer counts a staged window's
+    wait in the queue (``stage.queued``, ``stage.queued_ns``)."""
 
     def __init__(self, batches: Iterable[np.ndarray], depth: int):
         self._ring = [None] * depth
@@ -163,20 +175,28 @@ class _Stager:
 
     def _run(self, batches: Iterator[np.ndarray]) -> None:
         try:
-            for i, batch in enumerate(batches):
+            for i in itertools.count():
+                with profiling.span("stage.pull"):
+                    batch = next(batches, _END)
+                if batch is _END:
+                    break
                 slot = i % len(self._ring)
-                copied = self._free[slot].get()
-                if self._stop.is_set():
-                    return
-                if copied is not None:
-                    copied.synchronize()
+                with profiling.timed("stage.slot_wait"):
+                    copied = self._free[slot].get()
+                    if self._stop.is_set():
+                        return
+                    if copied is not None:
+                        copied.synchronize()
                 batch = np.asarray(batch)
                 buf = self._ring[slot]
                 if (buf is None or tuple(buf.shape) != batch.shape
                         or buf.numpy().dtype != batch.dtype):
                     buf = self._ring[slot] = _pinned(batch.shape, batch.dtype)
-                buf.numpy()[...] = batch
-                self._filled.put((slot, buf))
+                with profiling.timed("stage.copy", batch.nbytes):
+                    buf.numpy()[...] = batch
+                # The put's time, for the wait in the queue (tracing only).
+                put_ns = time.perf_counter_ns() if profiling.tracing() else None
+                self._filled.put((slot, buf, put_ns))
             self._filled.put(None)
         except Exception as e:  # raised again in the consumer's thread by next()
             self._filled.put(e)
@@ -186,7 +206,12 @@ class _Stager:
         item = self._filled.get()
         if isinstance(item, Exception):
             raise item
-        return item
+        if item is None:
+            return None
+        slot, buf, put_ns = item
+        if put_ns is not None:
+            profiling.count_time("stage.queued", time.perf_counter_ns() - put_ns)
+        return slot, buf
 
     def release(self, slot: int, copied: "torch.cuda.Event") -> None:
         """The copy out of ``slot``'s buffer was issued; ``copied`` follows it."""
@@ -197,6 +222,17 @@ class _Stager:
         for q in self._free:
             q.put(None)
         self._thread.join(timeout=60)
+
+
+def _when_done(out: Dict[str, torch.Tensor], done: "torch.cuda.Event"):
+    """``out`` once ``done`` (recorded after its forward) has completed.
+    The event's synchronizations are counted (``serve.event_syncs``): the
+    staging thread makes the same runtime call, which a profiler of this
+    thread alone cannot tell from this one."""
+    with profiling.span("serve.wait_done"):
+        profiling.count("serve.event_syncs")
+        done.synchronize()
+    return out
 
 
 def serve_stream(
@@ -214,6 +250,10 @@ def serve_stream(
     that copy's event.  So the host's staging copy of the next batches and
     their transfers overlap the forward of the one before, even where the
     predict function synchronizes the host (the decode's ``eigh``).
+    While a profiler runs, the consumer's thread marks its wait for a
+    staged window, the copy's launch, the predict function and the wait for
+    a window in flight (spans ``spef.serve.{wait_staged,h2d,predict,
+    wait_done}``).
     """
     if depth < 1:
         raise ValueError(f"depth must be at least 1, got {depth}")
@@ -221,7 +261,9 @@ def serve_stream(
     pending: collections.deque = collections.deque()
     if device.type != "cuda":
         for batch in batches:
-            pending.append(predict_fn(torch.from_numpy(np.ascontiguousarray(batch)).to(device)))
+            x = torch.from_numpy(np.ascontiguousarray(batch)).to(device)
+            with profiling.span("serve.predict"):
+                pending.append(predict_fn(x))
             if len(pending) >= depth:
                 yield pending.popleft()
         while pending:
@@ -233,11 +275,12 @@ def serve_stream(
     stager = _Stager(batches, depth)
     try:
         while True:
-            item = stager.next()
+            with profiling.span("serve.wait_staged"):
+                item = stager.next()
             if item is None:
                 break
             slot, buf = item
-            with torch.cuda.stream(copy_stream):
+            with profiling.span("serve.h2d"), torch.cuda.stream(copy_stream):
                 x = buf.to(device, non_blocking=True)
                 copied = torch.cuda.Event()
                 copied.record(copy_stream)
@@ -245,17 +288,14 @@ def serve_stream(
             compute.wait_event(copied)
             # x was allocated on the copy stream and is read on the compute stream.
             x.record_stream(compute)
-            out = predict_fn(x)
+            with profiling.span("serve.predict"):
+                out = predict_fn(x)
             done = torch.cuda.Event()
             done.record(compute)
             pending.append((out, done))
             if len(pending) >= depth:
-                out, done = pending.popleft()
-                done.synchronize()
-                yield out
+                yield _when_done(*pending.popleft())
         while pending:
-            out, done = pending.popleft()
-            done.synchronize()
-            yield out
+            yield _when_done(*pending.popleft())
     finally:
         stager.close()

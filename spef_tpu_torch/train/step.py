@@ -33,6 +33,7 @@ from spef_tpu_torch.codec.facade import SPEUtils
 from spef_tpu_torch.models.layers import BatchNorm, set_dropout_generator
 from spef_tpu_torch.parallel.mesh import Mesh, all_gather_rows, all_reduce_gradients
 from spef_tpu_torch.train.loss import SPELoss
+from spef_tpu_torch.utils import profiling
 
 __all__ = ["TrainState", "create_train_state", "make_train_step", "make_eval_step",
            "train_update"]
@@ -86,21 +87,29 @@ def train_update(state: TrainState, images: torch.Tensor, targets: Dict[str, tor
     dropout masks from ``generator``.  Returns the loss and the activated
     pose of the train-mode forward (of the global batch under a ``mesh``),
     detached, on the device.  Under a ``mesh`` the model's BatchNorm and
-    Dropout layers must hold it (``models.layers.set_data_parallel``)."""
+    Dropout layers must hold it (``models.layers.set_data_parallel``).
+    While a profiler runs, its four stages are spans ``spef.train.forward``
+    (the model and the last activation), ``.loss``, ``.backward``
+    (``zero_grad``, ``backward`` and the gradients' all-reduce) and
+    ``.optimizer`` (the step and the BatchNorm clamp)."""
     model = state.model
-    model.train()
-    set_dropout_generator(model, generator)
-    pose = _apply_last_activation(spe_utils, model(images))
     size = 1 if mesh is None else mesh.size
-    if size > 1:
-        pose = {k: all_gather_rows(mesh, v) for k, v in pose.items()}
-    loss = spe_loss.compute_loss(pose, targets)
-    state.optimizer.zero_grad(set_to_none=True)
-    (loss / size if size > 1 else loss).backward()
-    all_reduce_gradients(mesh, model)
-    state.optimizer.step()
-    if clip_batchnorm:
-        _clamp_batchnorm_scales(model)
+    with profiling.span("train.forward"):
+        model.train()
+        set_dropout_generator(model, generator)
+        pose = _apply_last_activation(spe_utils, model(images))
+        if size > 1:
+            pose = {k: all_gather_rows(mesh, v) for k, v in pose.items()}
+    with profiling.span("train.loss"):
+        loss = spe_loss.compute_loss(pose, targets)
+    with profiling.span("train.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        (loss / size if size > 1 else loss).backward()
+        all_reduce_gradients(mesh, model)
+    with profiling.span("train.optimizer"):
+        state.optimizer.step()
+        if clip_batchnorm:
+            _clamp_batchnorm_scales(model)
     state.step += 1
     return loss.detach(), {k: v.detach() for k, v in pose.items()}
 
