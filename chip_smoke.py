@@ -37,8 +37,12 @@ on its own lines; any failure exits nonzero:
      ``TIE_SHARE``, fails;
   3. the float flagship (``exp_dspeed_synth``, MobileNetV2 + URSONet,
      240x384) served through ``spef_tpu_torch.apps.serve``: requests of
-     256, 37 (padded) and 1 frames; the host-to-device copy and the predict
-     function timed apart; checked against the float32 model on the CPU;
+     256, 37 (padded) and 1 frames, the launch counters set to 0 before and
+     read after (34 ``bf16_conv1x1_bn`` and 17 ``bf16_depthwise3x3_bn``
+     launches a forward, the fused float convs: every eval float forward of
+     MobileNetV2 on the card below counts them so, and the int8 paths none);
+     the host-to-device copy and the predict function timed apart; checked
+     against the float32 model on the CPU;
   4. the boundary-recipe int8 flagship (the committed asset graph) served on
      the kernels: the launch counters are set to 0 before it is driven and
      must read 34 K1 and 17 K2 launches a forward after it; the copy, the
@@ -76,7 +80,8 @@ on its own lines; any failure exits nonzero:
      draws replayed once, then the valid and test frames rendered and
      written as PNG by worker processes) into ``build/`` and removed at the
      end, with the seconds this takes; the float flagship evaluated by
-     ``python -m spef_tpu_torch.apps.eval`` on each (its test ESA within
+     ``python -m spef_tpu_torch.apps.eval`` on each (one forward a batch of
+     32 on the test split counted; its test ESA within
      0.002 of the recorded ``eval_score_error.json``, its valid ESA within
      0.003 of the recorded ``score_error.json``, 0.12932); the committed int8 graph evaluated on the same loader batches by the
      ``layer``, ``fused`` and ``carry`` executors on the kernels, the
@@ -95,8 +100,13 @@ on its own lines; any failure exits nonzero:
      bf16-input calls and K4 under the tie rule, at most one step; any
      mismatch of an integer-input call fails), kernel / plain / library time
      (CUDA events) and its bound, printed as one ``{"kernels": [...]}`` JSON
-     line of four entries; K1's one call on the fused path (the head conv)
-     is timed apart, and K1's and K2's calls on the carry path;
+     line of six entries; K1's one call on the fused path (the head conv)
+     is timed apart, and K1's and K2's calls on the carry path; the fused
+     float convs at the float flagship's 51 calls of one forward, each held
+     against its plain twin (the depthwise kernel bit for bit; the 1x1
+     kernel within one step of its bf16 conv output through the BatchNorm
+     and the roundings after it, ``check_conv_bn``), the library being the
+     ``ConvBnAct`` unfused (cuDNN conv and the separate epilogue passes);
  10. training, the flagship at full width (``mobilenet_v2`` + URSONet,
      1232 + 1000 bins, batch 64, 240x384, Adam): a D-SPEED still set of 512
      + 128 + 128 frames written into ``build/``; a parity gate (one SGD
@@ -135,7 +145,9 @@ on its own lines; any failure exits nonzero:
      spef_tpu_torch.apps.eval --ransac --crop-refine``, and its
      ``crop-refine-w8`` engine variant), each test ESA within 0.01 of JAX's
      on the same frames, the TPU-era recorded ESAs printed beside them; the
-     launch counters read 0 (no hand kernel on this path); (c) CUDA-event
+     launch counters read 34 and 17 fused float conv launches a backbone
+     forward (one a batch for each single-model row, two for each two-pass
+     row) and no int8 kernel; (c) CUDA-event
      times at batches 1 and 256 of the coarse forward, the EPnP and RANSAC
      decodes, ``crop_resize``, the fine forward and the two-pass predict,
      the kernels each decode launches (``torch.profiler``) and its host
@@ -148,8 +160,10 @@ on its own lines; any failure exits nonzero:
      in worker processes and removed at the end, each scenario's frames
      hashing to what ``assets/temporal_esa.json`` (JAX on the CPU) was
      measured on; (a) the float flagship through ``python -m
-     spef_tpu_torch.apps.temporal_eval``, serial and ``--batch-sequences``:
-     each scenario's still and video ESA within 0.005 of JAX's and their
+     spef_tpu_torch.apps.temporal_eval``, serial and ``--batch-sequences``
+     (counters read: one forward a chunk of 32 frames of a scenario, or of
+     64 frames of them all): each scenario's still and video ESA within
+     0.005 of JAX's and their
      means within 0.002, the two modes within 1e-4 relative + 1e-5 of each
      other, ``ACCURACY.md``'s TPU-era row printed beside each; (b) the
      committed int8 graph on the ``fused`` executor through
@@ -160,6 +174,7 @@ on its own lines; any failure exits nonzero:
      frame), its video ESA within 0.003 of JAX's ``int8_carry``, its
      filtered PDFs within 1e-5 of ``scan_filter`` over the PDFs it was fed;
      (d) the app's wall time and frames/s in both modes, streaming p50 / p95
+     (the float flagship's launches counted, one forward a frame)
      a frame for the float flagship and the carry (host clock), forward
      chunks, ``scan_filter`` a sequence with its kernels a step
      (``torch.profiler``) and host syncs, decode and continuity (CUDA
@@ -174,9 +189,12 @@ on its own lines; any failure exits nonzero:
      spef_tpu_torch.apps.serve --artifact ... --frames-dir`` on the first
      256 test frames, its printed poses held to the artifact loaded here at
      print precision, and the loaded artifact to the live engine on the same
-     frames (float: log-PDFs within 1e-3, poses within 0.01 deg and 1e-3 m;
-     int8 and weight-only: log-PDFs within 1e-5), each artifact's size and
-     load time; (c) ``serving.serve_stream`` at depth 2 (pinned ring, copy
+     frames (float: log-PDFs within 1e-3, poses within 0.01 deg and 1e-3 m,
+     against the live engine's unfused convs, the program the export
+     traced; beside it against the live engine on the fused float convs,
+     log-PDFs within a quarter of the float stream's limits on the bins the
+     artifact gives at least 1e-6; int8 and weight-only: log-PDFs within
+     1e-5), each artifact's size and load time; (c) ``serving.serve_stream`` at depth 2 (pinned ring, copy
      stream) on the ``fused`` and ``carry`` executors and on the ``fused``
      forward alone (no decode), over 16 distinct batches of 256 frames,
      counters 0 before and read after (16 forwards' launches), each result
@@ -189,7 +207,8 @@ on its own lines; any failure exits nonzero:
      through a pageable copy, in turns; (e) ``python -m
      spef_tpu_torch.apps.benchmark`` (its ``main``) on every path at batch
      64, 240x384, its JSON printed, the ``int8_cuda`` path's launches
-     counted (34 K1 and 17 K2 a forward), then every K1 and K2 call of one
+     counted (34 K1 and 17 K2 a forward; the ``float`` and ``forward``
+     paths' forwards on the fused float convs), then every K1 and K2 call of one
      ``int8_cuda`` forward on the benchmark's own graph (default bit widths)
      and batch held against its plain version by ``check_call``, and the
      forward's logits against the plain backend's (0.3); (f)
@@ -230,7 +249,8 @@ on its own lines; any failure exits nonzero:
      ``autotune_report.json`` checked and summarized): (a) ``python -m
      spef_tpu_torch.apps.viewer --n 16 --video`` (its ``main``) on the
      ``float`` and ``int8-carry`` engines, counters 0 before and read after
-     (none on float, 34 K1 and 17 K2 a frame on the carry), the frames
+     (none on float, the experiment's QAT model, 34 K1 and 17 K2 a frame on
+     the carry), the frames
      written, each engine's per-frame ESA and latency, one frame redrawn on
      the CPU from the poses it drew and held equal to its PNG, the carry's
      K1 / K2 calls on one frame held against the plain versions; (b)
@@ -278,6 +298,7 @@ false or the package is missing.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -311,7 +332,18 @@ KERNELS = {
         "source": "spef_tpu_torch/csrc/fused_mbconv.cu",
         "replaces": "spef_tpu/ops/pallas/fused_block.py:633",
     },
+    # The float forward's eval convs: no Pallas kernel on the TPU, where XLA
+    # fuses the conv's epilogue into it.
+    "bf16_conv1x1_bn": {
+        "source": "spef_tpu_torch/csrc/bf16_conv1x1_bn.cu",
+        "replaces": "spef_tpu/models/layers.py:33 (XLA's fused conv epilogue)",
+    },
+    "bf16_depthwise3x3_bn": {
+        "source": "spef_tpu_torch/csrc/bf16_depthwise3x3_bn.cu",
+        "replaces": "spef_tpu/models/layers.py:33 (XLA's fused conv epilogue)",
+    },
 }
+FLOAT_KERNELS = ("bf16_conv1x1_bn", "bf16_depthwise3x3_bn")
 # Kernels redesigned for Hopper after their first port.
 REDESIGNED = ("int8_depthwise3x3", "fused_mbconv", "int8_matmul_requant", "fused_stem")
 # The most of a call's outputs that may sit on a tie and differ from the
@@ -321,6 +353,10 @@ TIE_SHARE = 0.005
 LAYER_LAUNCHES = {"int8_matmul_requant": 34, "int8_depthwise3x3": 17}
 CARRY_LAUNCHES = {"int8_matmul_requant": 34, "int8_depthwise3x3": 17}
 FUSED_LAUNCHES = {"fused_stem": 1, "fused_mbconv": 17, "int8_matmul_requant": 1}
+# An eval forward of the float MobileNetV2 on the card (every one of its
+# ConvBnAct but the stem); the two-pass crop-refine runs two.
+FLOAT_LAUNCHES = {"bf16_conv1x1_bn": 34, "bf16_depthwise3x3_bn": 17}
+CROP_REFINE_LAUNCHES = {name: 2 * n for name, n in FLOAT_LAUNCHES.items()}
 
 
 def log(msg: str) -> None:
@@ -439,6 +475,54 @@ def check_call(name, a, args, kw):
     return mis, err, step
 
 
+def _bf16_step(t):
+    """The spacing of bf16 values at ``|t|`` (8 significant bits)."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(t.abs().clamp(min=2.0 ** -126))) - 7)
+
+
+def check_conv_bn(name, a, args, kw):
+    """A fused float conv's output ``a`` against its plain twin on the same
+    operands; returns (mismatches, max |a - plain|).  The depthwise kernel
+    sums the taps in the twin's order: bit for bit.  The 1x1 kernel sums the
+    exact products on the tensor cores in their order: its float32 sum may
+    differ from the twin's by the two orders' rounding, at most
+    ``4 * K * 2^-24`` times the sum of the products' magnitudes, and each
+    side rounds it to bf16, so the two bf16 conv outputs lie within that
+    and two bf16 steps of each other; an output may then differ by that
+    times the BatchNorm's scale, plus two steps of each bf16 rounding after
+    it (the BatchNorm's and, with a residual, the add's).  A wrong epilogue
+    (scale, shift, the ReLU, the residual) misses that.  Raises on anything
+    else."""
+    import torch
+
+    from spef_tpu_torch.ops import bf16_conv_bn as ops
+
+    b = getattr(ops, name + "_plain")(*args, **kw)
+    mis, err = diff(a, b)
+    if name == "bf16_depthwise3x3_bn":
+        if mis:
+            raise AssertionError(f"{name}: {mis} kernel/plain mismatches")
+        return 0, err
+    x, w, scale, shift, relu, residual = args
+    k = x.shape[1]
+    wk = w[:, :k].float().t()
+    tol = (x.float().abs() @ wk.abs()) * (4 * k * 2.0 ** -24)
+    tol += 2 * _bf16_step((x.float() @ wk).to(torch.bfloat16).float())
+    tol *= scale.abs()
+    tol += 2 * _bf16_step(b.float())
+    if residual is not None:
+        tol += 2 * _bf16_step(ops.bf16_conv1x1_bn_plain(x, w, scale, shift, relu).float())
+    excess = (a.float() - b.float()).abs() - tol
+    outside = int((excess > 0).sum())
+    if outside:
+        raise AssertionError(f"{name}: {outside} of {mis} mismatching outputs further from the "
+                             f"plain twin than the conv's rounding allows (max |d| {err}, "
+                             f"largest excess {float(excess.max()):g})")
+    return mis, err
+
+
 # ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for one call's work.
 # ---------------------------------------------------------------------------
@@ -492,6 +576,28 @@ def stem_bound(args, kw):
     npix = b * ((h - 1) // 2 + 1) * ((wd - 1) // 2 + 1)
     nbytes = x.numel() + npix * cout + w.numel() + 8 * cout
     return _bound(nbytes, {"int8": 2 * 27 * npix * cout})
+
+
+def conv1x1_bn_bound(args, kw):
+    """``bf16_conv1x1_bn``: its input, output and residual once in bf16, the
+    packed weights and the two float32 BatchNorm terms; the multiply-adds at
+    the bf16 tensor rate."""
+    x, w, residual = args[0], args[1], args[5]
+    m, k = x.shape
+    n = w.shape[0]
+    nbytes = 2 * (m * k + m * n + w.numel()) + 8 * n
+    if residual is not None:
+        nbytes += 2 * m * n
+    return _bound(nbytes, {"bf16": 2 * m * n * k})
+
+
+def dw_bn_bound(args, kw):
+    """``bf16_depthwise3x3_bn``: input and output once in bf16, the taps and
+    the two float32 terms; the nine multiply-adds at the float32 rate."""
+    x, s = args[0], args[4]
+    b, h, w, c = x.shape
+    npix = b * ((h - 1) // s + 1) * ((w - 1) // s + 1)
+    return _bound(2 * (x.numel() + npix * c + 9 * c) + 8 * c, {"f32": 2 * 9 * npix * c})
 
 
 def mbconv_bound(args, kw):
@@ -869,8 +975,7 @@ def phase_float(torch, np, dev, frames):
     from spef_tpu_torch.engine import build_predict_fn
 
     server, _ = _serve(torch, ["--experiment", FLAGSHIP, "--batch", str(BATCH)])
-    log(f"[float] warmup {server.warmup():.2f} s")
-    _drive(np, server, frames, "float")
+    _, launches = _drive_counted(np, server, frames, "float", FLOAT_LAUNCHES)
     _request_parts(torch, server, frames, "float")
 
     # Reference on a small input: the float32 model on the card (TF32 off)
@@ -905,14 +1010,17 @@ def phase_float(torch, np, dev, frames):
         f"{d_pos:.3e} m; served bf16 vs f32 CPU: ori {ang:.3f} deg, pos {d_pos_bf16:.4f} m")
     assert d_soft < 1e-4 and d_pos < 1e-3, (d_soft, d_pos)
     assert ang < 10.0 and d_pos_bf16 < 0.5, (ang, d_pos_bf16)
+    return launches
 
 
 def _counters():
+    from spef_tpu_torch.ops.bf16_conv_bn import bf16_conv1x1_bn, bf16_depthwise3x3_bn
     from spef_tpu_torch.ops.fused_block import fused_mbconv, fused_stem
     from spef_tpu_torch.ops.int8_ops import int8_depthwise3x3, int8_matmul_requant
 
     return {"int8_matmul_requant": int8_matmul_requant, "int8_depthwise3x3": int8_depthwise3x3,
-            "fused_stem": fused_stem, "fused_mbconv": fused_mbconv}
+            "fused_stem": fused_stem, "fused_mbconv": fused_mbconv,
+            "bf16_conv1x1_bn": bf16_conv1x1_bn, "bf16_depthwise3x3_bn": bf16_depthwise3x3_bn}
 
 
 def _reset_counters():
@@ -921,14 +1029,35 @@ def _reset_counters():
         fn.launches_by_card = {}
 
 
-def _read_counters(label, forwards, per_forward):
+def _read_counters(label, forwards, per_forward, float_forwards=0):
     """The launch counts since ``_reset_counters``: exactly ``per_forward``
-    a forward, and 0 for the kernels off the path."""
+    a forward, ``FLOAT_LAUNCHES`` for each of ``float_forwards`` eval
+    forwards of the float MobileNetV2 beside them, and 0 for the kernels off
+    the path."""
     launches = {name: fn.launches for name, fn in _counters().items()}
-    log(f"[{label}] launches over {forwards} forwards: {launches}")
-    want = {name: per_forward.get(name, 0) * forwards for name in launches}
+    log(f"[{label}] launches over {forwards} forwards"
+        f"{f' and {float_forwards} float backbone forwards' if float_forwards else ''}: "
+        f"{launches}")
+    want = {name: per_forward.get(name, 0) * forwards
+            + FLOAT_LAUNCHES.get(name, 0) * float_forwards for name in launches}
     assert launches == want, (launches, want)
     return launches
+
+
+@contextlib.contextmanager
+def _plain_convs():
+    """Eval-mode ``ConvBnAct`` on the card runs its unfused path (the cuDNN
+    conv and the separate BatchNorm, cast and ReLU passes) while inside:
+    the yardstick of the fused kernels, and the program ``torch.export``
+    traces.  It empties ``layers._KERNEL_DEVICES``, the layers' test hook."""
+    from spef_tpu_torch.models import layers
+
+    saved = layers._KERNEL_DEVICES
+    layers._KERNEL_DEVICES = ()
+    try:
+        yield
+    finally:
+        layers._KERNEL_DEVICES = saved
 
 
 def _drive_counted(np, server, frames, label, per_forward):
@@ -1146,6 +1275,111 @@ def phase_kernels(torch, dev, frames, launches, built_graph):
             row["fused_path"] = {"calls_per_forward": 1, "ms": k_ms, "plain_ms": p_ms,
                                  "library_ms": l_ms, "bound_ms": b_ms, "bound_by": by,
                                  "max_abs_err": err}
+    return rows + _float_kernel_rows(torch, dev, frames, launches)
+
+
+def _float_calls(torch, dev, frames):
+    """One eval forward of the float flagship on ``frames`` with the fused
+    conv kernels' wrappers replaced by recorders: {kernel: [(args, kw,
+    module, x, residual), ...]}, each call's operands on the card beside the
+    ``ConvBnAct`` that made it and that module's input."""
+    from spef_tpu_torch.models import layers
+    from spef_tpu_torch.models.wrapper import import_model
+
+    model = import_model(params_path=os.path.join(FLAGSHIP, "model", "parameters.msgpack"),
+                         ori_mode="classification", n_ori_bins=1232, pos_mode="classification",
+                         n_pos_bins=1000, device=dev)
+    calls = {name: [] for name in FLOAT_KERNELS}
+    callers = []
+    forward_kernel = layers.ConvBnAct._forward_kernel
+    saved = {name: getattr(layers, name) for name in FLOAT_KERNELS}
+
+    def entered(self, kind, x, residual):
+        callers.append((self, x, residual))
+        try:
+            return forward_kernel(self, kind, x, residual)
+        finally:
+            callers.pop()
+
+    def recorder(name, fn):
+        def rec(*args, **kw):
+            calls[name].append((args, kw, *callers[-1]))
+            return fn(*args, **kw)
+        return rec
+
+    try:
+        layers.ConvBnAct._forward_kernel = entered
+        for name, fn in saved.items():
+            setattr(layers, name, recorder(name, fn))
+        with torch.no_grad():
+            model(torch.from_numpy(frames).to(dev).float() / torch.tensor(255.0, device=dev))
+        torch.cuda.synchronize()
+    finally:
+        layers.ConvBnAct._forward_kernel = forward_kernel
+        for name, fn in saved.items():
+            setattr(layers, name, fn)
+    return calls
+
+
+def _float_kernel_rows(torch, dev, frames, launches):
+    """The fused float convs at the float flagship's own inputs (one
+    batch-256 eval forward): each call held against its plain twin
+    (``check_conv_bn``), kernel / twin / library time (CUDA events) and its
+    bound; the library is the ``ConvBnAct`` unfused (the bf16 cuDNN conv,
+    ``.float()``, float32 BatchNorm, ``.to(bf16)``, the ReLU and the
+    residual add, as before the kernels).  Returns the two rows of the
+    ``kernels`` line."""
+    from spef_tpu_torch.ops import bf16_conv_bn
+
+    calls = _float_calls(torch, dev, frames)
+    bounds = {"bf16_conv1x1_bn": conv1x1_bn_bound, "bf16_depthwise3x3_bn": dw_bn_bound}
+    rows = []
+    for name, recs in calls.items():
+        assert len(recs) == FLOAT_LAUNCHES[name], (name, len(recs))
+        kernel, plain = getattr(bf16_conv_bn, name), getattr(bf16_conv_bn, name + "_plain")
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+        mismatches, max_err, outputs = 0, 0.0, 0
+        for i, (args, kw, module, x, residual) in enumerate(recs):
+            a = kernel(*args, **kw)
+            torch.cuda.synchronize()
+            mis, err = check_conv_bn(name, a, args, kw)
+            outputs += a.numel()
+            del a
+
+            def library(module=module, x=x, residual=residual):
+                with _plain_convs(), torch.no_grad():
+                    return module(x, residual)
+
+            k_ms = time_ms(lambda: kernel(*args, **kw), reps=10)
+            p_ms = time_ms(lambda: plain(*args, **kw), reps=2)
+            l_ms = time_ms(library, reps=10)
+            b_ms, by = bounds[name](args, kw)
+            log(f"[kernels] {name} call {i}: in {tuple(args[0].shape)}, out channels "
+                f"{module.conv.out_channels}, stride {module.conv.stride[0]}"
+                f"{', residual' if residual is not None else ''}, {mis} mismatches (max |d| "
+                f"{err:g}), kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, library {l_ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({by})")
+            mismatches, max_err = mismatches + mis, max(max_err, err)
+            tot["ms"] += k_ms
+            tot["plain_ms"] += p_ms
+            tot["library_ms"] += l_ms
+            tot["bytes_ms" if by == "bytes" else "ops_ms"] += b_ms
+        bound_ms = tot["bytes_ms"] + tot["ops_ms"]
+        log(f"[kernels] {name} on the float path: {len(recs)} calls a forward, {mismatches} "
+            f"mismatches ({mismatches / outputs:.2e} of the outputs), kernel {tot['ms']:.3f} ms, "
+            f"plain {tot['plain_ms']:.3f} ms, library (ConvBnAct unfused) "
+            f"{tot['library_ms']:.3f} ms, bound {bound_ms:.3f} ms a batch-{BATCH} forward "
+            f"({tot['ms'] / bound_ms:.1f}x the bound)")
+        rows.append({
+            "name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],
+            "max_abs_err": max_err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
+            "library_ms": tot["library_ms"],
+            "library": "ConvBnAct unfused: bf16 cuDNN conv + f32 BatchNorm, casts, ReLU",
+            "mismatches": mismatches, "calls_per_forward": len(recs), "redesigned": False})
+    del calls
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1625,7 +1859,6 @@ def _train_cli(torch, np, dev, still, root):
     split decoded in that epoch); a fourth on RAM-cached and a fifth on
     device-resident data, both read from the sidecar the third wrote; the
     trained experiment served for one batch through ``apps.serve``."""
-    import contextlib
 
     from spef_tpu_torch.apps import train as train_app
     from spef_tpu_torch.data.dataset import load_dataset
@@ -1856,8 +2089,8 @@ def phase_accuracy(torch, np, dev, still, valid_still=None):
     held to its reference; the executors' per-frame pose distances; each
     executor's kernels within 0.3 logit of its plain backend on 256 of
     these frames.  Every number is printed before a gate that failed is
-    raised.  Returns ({executor: launches over its evaluation}, the loaded
-    test batches)."""
+    raised.  Returns ({path: launches over its evaluation}: the float
+    flagship's ``apps.eval`` and each executor's, the loaded test batches)."""
     from spef_tpu_torch.apps import eval as eval_app
     from spef_tpu_torch.codec.facade import SPEUtils
     from spef_tpu_torch.data.camera import load_camera
@@ -1902,7 +2135,9 @@ def phase_accuracy(torch, np, dev, still, valid_still=None):
     score, error = _timed(
         "float flagship: python -m spef_tpu_torch.apps.eval (load, forward, score)",
         lambda: eval_app.main(["--experiment", exp, "--data", still]))
-    _read_counters("accuracy:float", 0, {})
+    # one eval forward a loader batch of the test split (padded at its end)
+    float_launches = _read_counters("accuracy:float", 0, {},
+                                    float_forwards=-(-split["n_test"] // EVAL_BATCH))
     with open(os.path.join(exp, "eval_score_error.json")) as f:
         written = json.load(f)
     assert written["scores"]["test"]["esa"][0] == score["test"]["esa"][0]
@@ -1944,7 +2179,7 @@ def phase_accuracy(torch, np, dev, still, valid_still=None):
     executors = {"layer": (build_cuda_forward, LAYER_LAUNCHES),
                  "fused": (build_fused_forward, FUSED_LAUNCHES),
                  "carry": (build_int8_carry_forward, CARRY_LAUNCHES)}
-    esa, poses, launches = {}, {}, {}
+    esa, poses, launches = {}, {}, {"float": float_launches}
     for name, (build, per_forward) in executors.items():
         rec = _PoseRecorder(SPETorch(None, utils, forward_fn=build(graph, backend="cuda",
                                                                    device=dev), device=dev))
@@ -2149,6 +2384,9 @@ def phase_keypoints(torch, np, dev, still, batches):
                                                  ("test",)), "keypoints")
         esa[row] = (score["test"]["esa"][0], error["test"]["ori"][0], error["test"]["pos"][0])
         n_forwards += len(batches)
+    # The two-pass pair runs the coarse and the fine model on each batch (apps.eval's
+    # default batch is EVAL_BATCH, so its batches are these).
+    n_forwards += 2 * len(batches)
     # The registry's two-pass pair through apps.eval, as a user runs it.
     exp = os.path.join(os.path.dirname(os.path.normpath(still)), "exp_keypoints_heatmap_synth")
     os.makedirs(exp, exist_ok=True)
@@ -2172,7 +2410,9 @@ def phase_keypoints(torch, np, dev, still, batches):
                           lambda: evaluation(w8, data, w8.spe_utils, ("test",)), "keypoints")
     esa["crop_refine_w8_ransac"] = (score["test"]["esa"][0], error["test"]["ori"][0],
                                     error["test"]["pos"][0])
-    _read_counters("keypoints", n_forwards, {})
+    n_forwards += 2 * len(batches)
+    # Every model of the family is a float MobileNetV2: no int8 kernel here.
+    _read_counters("keypoints", 0, {}, float_forwards=n_forwards)
     tpu_era = {"coarse_epnp": _recorded_esa(KP_COARSE, "eval_score_error"),
                "coarse_ransac": _recorded_esa(KP_COARSE, "eval_score_error_ransac"),
                "regression_epnp": _recorded_esa(KP_REGRESSION, "eval_score_error")}
@@ -2267,9 +2507,10 @@ def write_scenarios(root):
     return video
 
 
-def _temporal_cli(root, exp, video, mode, extra):
-    """``python -m spef_tpu_torch.apps.temporal_eval`` in one mode; returns
-    (its temporal_metrics.json, wall seconds)."""
+def _temporal_cli(root, exp, video, mode, extra, forwards):
+    """``python -m spef_tpu_torch.apps.temporal_eval`` in one mode, which
+    runs ``forwards`` forwards of the float flagship; returns (its
+    temporal_metrics.json, wall seconds)."""
     from spef_tpu_torch.apps import temporal_eval
 
     out = os.path.join(root, f"temporal_{mode}")
@@ -2277,7 +2518,7 @@ def _temporal_cli(root, exp, video, mode, extra):
     t0 = time.perf_counter()
     temporal_eval.main(["--experiment", exp, "--data", video, "--out", out, *extra])
     wall = time.perf_counter() - t0
-    _read_counters(f"temporal:float {mode}", 0, {})  # no hand kernel on the float path
+    _read_counters(f"temporal:float {mode}", 0, {}, float_forwards=forwards)
     files = set(os.listdir(out))
     assert {"temporal_metrics.json", "still_metrics_S.csv", "video_metrics_S.csv",
             "distances_S.csv"} <= files, files
@@ -2400,8 +2641,13 @@ def phase_temporal(torch, np, dev, video, card):
     shutil.copy(os.path.join(FLAGSHIP, "config.yaml"), exp)
     os.symlink(os.path.join(FLAGSHIP, "model"), os.path.join(exp, "model"))
     got, walls = {}, {}
+    # Serial: each scenario in chunks of 32 frames (sequence_inference);
+    # batched: the scenarios' frames together in chunks of 64
+    # (multi_sequence_inference).
+    per_seq = TEMPORAL_N_FRAMES + 1
+    forwards = {"serial": len(rows) * -(-per_seq // 32), "batched": -(-len(rows) * per_seq // 64)}
     for mode, extra in (("serial", []), ("batched", ["--batch-sequences"])):
-        got[mode], walls[mode] = _temporal_cli(root, exp, video, mode, extra)
+        got[mode], walls[mode] = _temporal_cli(root, exp, video, mode, extra, forwards[mode])
         n = len(got[mode]) * (TEMPORAL_N_FRAMES + 1)
         log(f"[temporal:time] float, python -m spef_tpu_torch.apps.temporal_eval"
             f"{' --batch-sequences' if extra else ''}: {walls[mode]:.2f} s wall, "
@@ -2510,6 +2756,8 @@ def phase_temporal(torch, np, dev, video, card):
                                   n_pos_bins=utils.position.n_bins)
     _stream(torch, np, SPETorch(model, utils, device=dev), utils, frames[i], "float flagship",
             card)
+    launches["float_streaming"] = _read_counters("temporal:float streaming", 0, {},
+                                                 float_forwards=len(frames[i]))
     with torch.inference_mode():
         for b in (32, 64):
             x8 = torch.from_numpy(flat[:b]).to(dev)
@@ -2556,6 +2804,11 @@ STREAM_BATCHES = 16  # distinct batches of BATCH frames through serve_stream
 FLOAT_LOGP_TOL = 1e-3  # the float artifact's log-PDFs against the live engine's
 INT8_LOGP_TOL = 1e-5  # the int8 / weight-only artifacts' against their live forwards
 POSE_DEG_TOL, POSE_M_TOL = 0.01, 1e-3  # the float artifact's poses against the live ones
+# The float forward on the fused convs against the unfused one, which sums each
+# conv in another order: a quarter of the float stream's log-PDF limits
+# (perfbench/limits/flagship_float.stream_b256.json), as its card test holds it.
+FUSED_LOGP_TOL = {"ori_soft": 0.25, "pos_soft": 0.15}
+FUSED_P_FLOOR = 1e-6
 # PERF.md §5: request p50 at batch 256 with the pageable copy (an earlier run).
 PAGEABLE_P50 = {"float": 50.13, "fused": 18.62}
 BENCH_PATHS = ("float", "forward", "int8_cuda", "int8_plain", "weight_only", "train")
@@ -2568,6 +2821,18 @@ def _max_logp(torch, a, b):
     return max(float((torch.log(torch.as_tensor(a[k]).double())
                       - torch.log(torch.as_tensor(b[k]).double())).abs().max())
                for k in ("ori_soft", "pos_soft"))
+
+
+def _fused_logp_gaps(torch, plain, fused):
+    """{PDF: max |d log p|} of the fused convs' pose dict against the
+    unfused one's, on the bins the unfused one gives at least
+    ``FUSED_P_FLOOR`` (``tests/test_torch_float_conv_bn.py``'s rule)."""
+    gaps = {}
+    for k in ("ori_soft", "pos_soft"):
+        a, b = torch.as_tensor(fused[k]).double(), torch.as_tensor(plain[k]).double()
+        keep = b >= FUSED_P_FLOOR
+        gaps[k] = float((torch.log(a[keep]) - torch.log(b[keep])).abs().max())
+    return gaps
 
 
 def _pose_gap(np, a, b):
@@ -2675,7 +2940,12 @@ def _deploy_serve_artifacts(torch, np, dev, still, root, exports):
         load_s = time.perf_counter() - t0
         got, ms = engine.predict(frames)
         got = {k: v.cpu().numpy() for k, v in got.items()}
-        want = {k: v.cpu().numpy() for k, v in live(torch.from_numpy(frames).to(dev)).items()}
+        x = torch.from_numpy(frames).to(dev)
+        # The export traced the float model's unfused convs (a hand kernel
+        # cannot be traced): the artifact is held to that program, and
+        # beside it to the live engine on the fused kernels.
+        with _plain_convs() if variant == "float" else contextlib.nullcontext():
+            want = {k: v.cpu().numpy() for k, v in live(x).items()}
         rows = printed[variant]
         assert sorted(rows) == names, (variant, len(rows))
         d_q = max(float(np.abs(rows[n][0] * np.sign(rows[n][0] @ got["ori"][i])
@@ -2696,7 +2966,17 @@ def _deploy_serve_artifacts(torch, np, dev, still, root, exports):
         if variant == "float" and not (deg <= POSE_DEG_TOL and dist <= POSE_M_TOL):
             failed.append(f"float: poses {deg} deg, {dist} m from the live engine (at most "
                           f"{POSE_DEG_TOL}, {POSE_M_TOL})")
-    _read_counters("deploy:artifacts", 0, {})  # the exported programs reach no kernel
+        if variant == "float":
+            fused = {k: v.cpu().numpy() for k, v in live(x).items()}
+            gaps = _fused_logp_gaps(torch, got, fused)
+            deg, dist = _pose_gap(np, got, fused)
+            log(f"[deploy] float.spef vs the live engine on the fused convs: max |d log p| "
+                f"{gaps} on the bins the artifact gives at least {FUSED_P_FLOOR} (at most "
+                f"{FUSED_LOGP_TOL}), orientation {deg:.5f} deg, position {dist:.2e} m")
+            failed += [f"float: {k} log-PDFs {gaps[k]} from the fused engine's (at most "
+                       f"{FUSED_LOGP_TOL[k]})" for k in gaps if not gaps[k] <= FUSED_LOGP_TOL[k]]
+    # The exported programs reach no kernel; the live float engine's one forward does.
+    _read_counters("deploy:artifacts", 0, {}, float_forwards=1)
     return failed
 
 
@@ -2857,7 +3137,6 @@ def _deploy_tools(torch, np, dev, root, failed):
     path's own graph and batch against their plain versions (``_hold_path``,
     disagreements into ``failed``); (f) ``apps.nn_stats`` on the flagship's
     shape; returns the benchmark's launches and the checks."""
-    import contextlib
     import io
 
     import spef_tpu_torch.quant.int8_cuda as int8_cuda
@@ -2872,7 +3151,9 @@ def _deploy_tools(torch, np, dev, root, failed):
                               "240", "384", "--iters", str(BENCH_ITERS), "--json", out,
                               "--device", dev.type])
     # int8_cuda: 3 warm-up and BENCH_ITERS timed forwards
-    launches = _read_counters("deploy:benchmark", 3 + BENCH_ITERS, LAYER_LAUNCHES)
+    # ... and the float and forward paths' as many forwards each, on the fused convs
+    launches = _read_counters("deploy:benchmark", 3 + BENCH_ITERS, LAYER_LAUNCHES,
+                              float_forwards=2 * (3 + BENCH_ITERS))
     with open(out) as f:
         assert json.load(f) == results
     log(f"[deploy] apps.benchmark --batch {BENCH_BATCH} --img 240 384 --iters {BENCH_ITERS} "
@@ -2918,7 +3199,7 @@ def phase_deploy_serve(torch, np, dev, still):
                                                           decode=False)
         del batches
         _deploy_copies(torch, np, dev, base)
-        launches["benchmark_int8_cuda"], checks = _deploy_tools(torch, np, dev, root, failed)
+        launches["benchmark"], checks = _deploy_tools(torch, np, dev, root, failed)
         log(f"[deploy] phase: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3003,7 +3284,6 @@ def _libjpeg_here():
 def _served_lines(np, argv):
     """``apps.serve`` run with ``argv`` (its ``main``): (its output, {frame:
     (q, t)} of the lines it printed)."""
-    import contextlib
     import re
 
     from spef_tpu_torch.apps import serve
@@ -3137,7 +3417,6 @@ def _dp_subset(still, root):
 def _host_training(torch, np, still, root, device_augment_fps, failed):
     """(c) The host warp in ``apps.train``, then ``--data-parallel`` at
     world size 1."""
-    import contextlib
 
     from spef_tpu_torch.apps import train as train_app
 
@@ -3495,8 +3774,11 @@ def phase_viewer_gui_tuner(torch, np, dev, still, folder, root, card):
     t0 = time.perf_counter()
     failed = []
     launches, checks = {}, {}
-    _viewer(torch, np, dev, folder, still, os.path.join(root, "viewer_float"), "float", {},
-            card, failed)
+    # The float engine of phase 11's QAT experiment is its QAT model
+    # (QConvBnAct): no hand kernel, the fused float convs included.
+    launches["viewer_float"], _ = _viewer(
+        torch, np, dev, folder, still, os.path.join(root, "viewer_float"), "float", {},
+        card, failed)
     launches["viewer_int8_carry"], frame = _viewer(
         torch, np, dev, folder, still, os.path.join(root, "viewer_carry"), "int8-carry",
         CARRY_LAUNCHES, card, failed)
@@ -3528,14 +3810,15 @@ SHARD_KP_TOL = 1e-3  # crop-refine keypoints (normalized) over N cards against o
 # window four times larger.
 SHARD_WIDE, SHARD_WIDE_EXECUTORS = 4 * BATCH, ("fused", "crop-refine")
 SHARD_EXECUTORS = {  # name: (serve arguments, launches a forward)
-    "float": (["--experiment", FLAGSHIP], {}),
+    "float": (["--experiment", FLAGSHIP], FLOAT_LAUNCHES),
     "layer": (["--experiment", FLAGSHIP, "--int8-graph", ASSET, "--int8-executor", "layer"],
               LAYER_LAUNCHES),
     "fused": (["--experiment", FLAGSHIP, "--int8-graph", ASSET, "--int8-executor", "fused"],
               FUSED_LAUNCHES),
     "carry": (["--experiment", FLAGSHIP, "--int8-graph", ASSET, "--int8-executor", "carry"],
               CARRY_LAUNCHES),
-    "crop-refine": (["--experiment", KP_COARSE, "--crop-refine", KP_FINE, "--ransac"], {}),
+    "crop-refine": (["--experiment", KP_COARSE, "--crop-refine", KP_FINE, "--ransac"],
+                    CROP_REFINE_LAUNCHES),
 }
 
 
@@ -3847,7 +4130,7 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     phase_variants(torch, dev)
     frames = np.random.RandomState(0).randint(0, 256, (BATCH, 240, 384, 3), np.uint8)
-    phase_float(torch, np, dev, frames)
+    float_launches = phase_float(torch, np, dev, frames)
     layer = phase_int8(torch, np, dev, frames, "layer")
     fused = phase_int8(torch, np, dev, frames, "fused")
     log_executor_distance(np, layer, fused)
@@ -3878,7 +4161,9 @@ def main() -> int:
     layer_launches, fused_launches = layer[0], fused[0]
     # K1 and K2 are on three paths: their rows keep the layer executor's
     # counts (their times are of those calls); the others are beside them.
-    launches = {name: layer_launches[name] or fused_launches[name] for name in KERNELS}
+    # The fused float convs' rows keep the float flagship's (phase 3).
+    launches = {name: layer_launches[name] or fused_launches[name] or float_launches[name]
+                for name in KERNELS}
     rows = phase_kernels(torch, dev, frames, launches, graph)
     train_root = os.path.join(REPO, "build", f"chip_smoke_train_{os.getpid()}")
     try:

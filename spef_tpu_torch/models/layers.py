@@ -18,6 +18,17 @@ batch variance and decays the running statistics toward the *biased* one
 larger).  :class:`Dropout` is flax's, its mask drawn from an explicit
 ``torch.Generator`` (:func:`set_dropout_generator`).
 
+On the card, an eval-mode ``ConvBnAct`` whose gradient is not needed, in
+bf16 with BatchNorm, runs its 1x1 or 3x3 depthwise conv as one hand-written
+kernel with the BatchNorm, the ReLU and a projection's residual add in its
+epilogue (``ops/bf16_conv_bn.py``), in the same roundings; every other call
+(train mode, grad enabled, the CPU, float32, the stem's geometry, channel
+counts off multiples of 8, a trace) runs the conv and its epilogue as
+separate PyTorch operations.  The
+kernels' packed weights and BatchNorm terms are cached on the module and
+packed again when a parameter or running statistic changes (its
+``_version`` or ``data_ptr``).
+
 Data parallel (``parallel/mesh.py``): with a ``mesh`` of more than one rank
 (:func:`set_data_parallel`), train-mode BatchNorm takes the statistics of
 the global batch, its moments summed over the ranks, and Dropout draws the
@@ -31,11 +42,20 @@ from typing import Optional
 import torch
 from torch import nn
 
+from spef_tpu_torch.ops import _build
+from spef_tpu_torch.ops.bf16_conv_bn import (bf16_conv1x1_bn, bf16_depthwise3x3_bn, bn_terms,
+                                             pack_conv1x1_weights, pack_depthwise_weights)
+from spef_tpu_torch.utils import profiling
+
 __all__ = ["BatchNorm", "ConvBnAct", "Dropout", "InvertedResidual", "kaiming_normal_fan_out_",
            "set_dropout_generator", "set_data_parallel"]
 
 BN_EPS = 1e-5
 BN_DECAY = 0.9  # flax momentum: running = 0.9 * running + 0.1 * batch
+# Devices whose eval-mode convs run the fused kernels.  A test hook, not a
+# setting: tests add the CPU (the wrappers then run the kernels' plain twins),
+# and chip_smoke.py empties it for the unfused yardstick on the card.
+_KERNEL_DEVICES = ("cuda",)
 
 
 def kaiming_normal_fan_out_(w: torch.Tensor, generator: Optional[torch.Generator]) -> None:
@@ -163,8 +183,15 @@ class ConvBnAct(nn.Module):
         self.bn = BatchNorm(features) if batchnorm else None
         self.activation = activation
         self.compute_dtype = compute_dtype
+        self._kernel_cache = None  # (key, packed operands) of the fused kernels
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``residual`` (a projection's identity skip) is added last, ``residual + y``."""
+        kind = self._kernel_kind(x, residual)
+        if not self.training:
+            profiling.count("forward.conv_plain" if kind is None else "forward.conv_fused")
+        if kind is not None:
+            return self._forward_kernel(kind, x, residual)
         cd = self.compute_dtype
         bias = None if self.conv.bias is None else self.conv.bias.to(cd)
         x = torch.nn.functional.conv2d(
@@ -174,7 +201,62 @@ class ConvBnAct(nn.Module):
             x = self.bn(x.float()).to(cd)
         if self.activation:
             x = torch.relu(x)
-        return x
+        return x if residual is None else residual + x
+
+    def _kernel_kind(self, x: torch.Tensor, residual: Optional[torch.Tensor]) -> Optional[str]:
+        """``"1x1"`` or ``"dw3x3"`` where this call runs a fused kernel, else None.
+        The kernels move 16 bytes a copy: channel counts multiples of 8,
+        activations at 16-byte boundaries (as every MobileNetV2 layer's)."""
+        conv = self.conv
+        if (self.training or torch.is_grad_enabled() or x.device.type not in _KERNEL_DEVICES
+                or self.compute_dtype != torch.bfloat16 or self.bn is None
+                or conv.bias is not None or conv.dilation != (1, 1) or _build.traced(x)
+                or conv.in_channels % 8 or conv.out_channels % 8 or x.data_ptr() % 16
+                or (residual is not None and residual.data_ptr() % 16)):
+            return None
+        if (conv.kernel_size == (1, 1) and conv.groups == 1 and conv.stride == (1, 1)
+                and conv.padding == (0, 0)):
+            return "1x1"
+        if (conv.kernel_size == (3, 3) and conv.groups == conv.in_channels == conv.out_channels
+                and conv.stride in ((1, 1), (2, 2)) and conv.padding == (1, 1)):
+            return "dw3x3"
+        return None
+
+    def _kernel_operands(self) -> dict:
+        """The fused kernels' bf16 weights and f32 BatchNorm terms, packed
+        once and again whenever a parameter or running statistic changed."""
+        bn = self.bn
+        sources = (self.conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+        key = tuple((t._version, t.data_ptr()) for t in sources)
+        cached = self._kernel_cache
+        if cached is None or cached[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                scale, shift = bn_terms(bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                                        bn.eps)
+                w = self.conv.weight
+                w = pack_conv1x1_weights(w) if w.shape[2:] == (1, 1) else \
+                    pack_depthwise_weights(w)
+            cached = self._kernel_cache = (key, {"w": w, "scale": scale, "shift": shift})
+        return cached[1]
+
+    def _forward_kernel(self, kind: str, x: torch.Tensor,
+                        residual: Optional[torch.Tensor]) -> torch.Tensor:
+        """The conv, BatchNorm, ReLU (and a 1x1's residual add) as one kernel,
+        on NHWC views of the channels_last tensors."""
+        ops = self._kernel_operands()
+        xh = x.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
+        if kind == "dw3x3":
+            y = bf16_depthwise3x3_bn(xh, ops["w"], ops["scale"], ops["shift"],
+                                     self.conv.stride[0], self.activation)
+            y = y.permute(0, 3, 1, 2)
+            return y if residual is None else residual + y
+        b, h, w, c = xh.shape
+        res = None
+        if residual is not None:
+            res = residual.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous().view(b * h * w, -1)
+        y = bf16_conv1x1_bn(xh.view(b * h * w, c), ops["w"], ops["scale"], ops["shift"],
+                            self.activation, res)
+        return y.view(b, h, w, -1).permute(0, 3, 1, 2)
 
 
 class InvertedResidual(nn.Module):
@@ -206,5 +288,4 @@ class InvertedResidual(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x if self.expand is None else self.expand(x)
-        y = self.project(self.depthwise(y))
-        return x + y if self.use_residual else y
+        return self.project(self.depthwise(y), residual=x if self.use_residual else None)

@@ -20,13 +20,14 @@ import tempfile
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["SOURCES", "build_all", "load_library", "nvcc_path", "check", "refuse_tracing",
-           "count_launch", "KernelTraceError"]
+__all__ = ["SOURCES", "build_all", "load_library", "nvcc_path", "check", "traced",
+           "refuse_tracing", "count_launch", "KernelTraceError"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("int8_matmul_requant", "int8_depthwise3x3", "fused_stem", "fused_mbconv")
+SOURCES = ("int8_matmul_requant", "int8_depthwise3x3", "fused_stem", "fused_mbconv",
+           "bf16_conv1x1_bn", "bf16_depthwise3x3_bn")
 # --split-compile 0: the kernels of one source are optimised on as many
 # threads as the host has cores (K4's four instantiations are most of the
 # build).
@@ -113,14 +114,20 @@ class KernelTraceError(RuntimeError):
     traced a function."""
 
 
+def traced(x) -> bool:
+    """Whether a tracer (``torch.export``, ``torch.compile``) is recording
+    the call that holds ``x``."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return torch.compiler.is_compiling() or isinstance(x, FakeTensor)
+
+
 def refuse_tracing(what: str, x) -> None:
     """Raise before a launch that a tracer is recording: a traced tensor has
     no memory (its ``data_ptr`` is not an address), so the launch would
     read and write nothing real and the trace would record no kernel."""
-    import torch
-    from torch._subclasses.fake_tensor import FakeTensor
-
-    if torch.compiler.is_compiling() or isinstance(x, FakeTensor):
+    if traced(x):
         raise KernelTraceError(
             f"{what}: a hand-written CUDA kernel cannot be traced by torch.export (a ctypes "
             f"launch on a tensor with no memory); export a forward without hand kernels "

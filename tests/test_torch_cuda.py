@@ -35,6 +35,12 @@ from spef_tpu_torch.ops.fused_block import (  # noqa: E402
     pack_stem_weights,
     tie_mismatches,
 )
+from spef_tpu_torch.ops.bf16_conv_bn import (  # noqa: E402
+    bf16_conv1x1_bn,
+    bf16_conv1x1_bn_plain,
+    bf16_depthwise3x3_bn,
+    bf16_depthwise3x3_bn_plain,
+)
 from spef_tpu_torch.ops.int8_ops import (  # noqa: E402
     int8_depthwise3x3,
     int8_depthwise3x3_plain,
@@ -296,7 +302,31 @@ ON_ANOTHER_CARD = [  # (kernel, case, shape): K1 both ways, K4 bit for bit and u
     ("fused_stem", "flagship_bits", None),
     ("fused_mbconv", "grids_s1_residual_ratio", None),
     ("fused_mbconv", "b1_s2", None),
+    ("bf16_conv1x1_bn", "project_residual", (333, 160, 96)),
+    ("bf16_depthwise3x3_bn", "s2", (2, 120, 192, 32)),
 ]
+
+
+def _conv_bn_operands(kernel, shape, dev):
+    """Integer-valued operands of the float forward's fused kernels (every
+    order of the conv's sum gives the same sum, so the kernel is its plain
+    twin bit for bit) with real BatchNorm terms."""
+    g = torch.Generator().manual_seed(sum(shape))
+    ints = lambda *sh: torch.randint(-8, 9, sh, generator=g).float()  # noqa: E731
+    if kernel == "bf16_conv1x1_bn":
+        m, k, n = shape
+        w = torch.zeros(n, -(-k // 32) * 32)
+        w[:, :k] = ints(n, k)
+        args = [ints(m, k).to(dev, torch.bfloat16), w.to(dev, torch.bfloat16)]
+        residual = (torch.randn(m, n, generator=g) * 4).to(dev, torch.bfloat16)
+        kw = dict(relu=False, residual=residual)
+    else:
+        c = shape[-1]
+        args = [ints(*shape).to(dev, torch.bfloat16), ints(3, 3, c).to(dev, torch.bfloat16)]
+        kw = dict(stride=2, relu=True)
+    n = args[1].shape[0] if kernel == "bf16_conv1x1_bn" else shape[-1]
+    args += [(torch.rand(n, generator=g) + 0.5).to(dev), torch.randn(n, generator=g).to(dev)]
+    return args, kw
 
 
 @pytest.mark.parametrize("kernel,case,shape", ON_ANOTHER_CARD)
@@ -314,10 +344,14 @@ def test_kernels_launch_on_a_card_that_is_not_current(cards, kernel, case, shape
             args, kw = _k2_operands(case, shape, last)
         elif kernel == "fused_stem":
             args, kw = _k3_operands(case, last)
+        elif kernel.startswith("bf16_"):
+            args, kw = _conv_bn_operands(kernel, shape, last)
         else:
             args, kw = _k4_operands(case, last)
         fn = {"int8_matmul_requant": int8_matmul_requant, "int8_depthwise3x3": int8_depthwise3x3,
-              "fused_stem": fused_stem, "fused_mbconv": fused_mbconv}[kernel]
+              "fused_stem": fused_stem, "fused_mbconv": fused_mbconv,
+              "bf16_conv1x1_bn": bf16_conv1x1_bn, "bf16_depthwise3x3_bn": bf16_depthwise3x3_bn,
+              }[kernel]
         before, on_last = fn.launches, fn.launches_by_card.get(last.index, 0)
         got = fn(*args, **kw)
         torch.cuda.synchronize(last)
@@ -328,6 +362,10 @@ def test_kernels_launch_on_a_card_that_is_not_current(cards, kernel, case, shape
         check_mm(got, args, kw)
     elif kernel == "fused_mbconv":
         _k4_same(got, *args, kw)
+    elif kernel == "bf16_conv1x1_bn":
+        _same(got, bf16_conv1x1_bn_plain(*args, **kw))
+    elif kernel == "bf16_depthwise3x3_bn":
+        _same(got, bf16_depthwise3x3_bn_plain(*args, **kw))
     else:
         _same(got, (int8_depthwise3x3_plain if kernel == "int8_depthwise3x3"
                     else fused_stem_plain)(*args, **kw))
