@@ -290,7 +290,23 @@ on its own lines; any failure exits nonzero:
      while ``cuda:0`` is current, every K1-K4 call held to its plain
      version; the ``kernels`` line's ``launches_sharded_path`` (all
      cards', and each card's as counted) and ``sharded_path_check``;
- 18. the last line: ``{"ok": true, "device": {...}}``.
+ 18. HRNet-W32 (``import_model("hrnet_w32", "hrnet_heatmap")``) at 480x768:
+     the benchmark's plain reference's seeded leaves, its BatchNorm
+     statistics and final-layer scale set by its calibration
+     (``perfbench/reference/hrnet.py::init_leaves``, ``calibrate``, 64
+     wireframe frames), loaded strictly (``load``); one predict of ``HRNET_FRAMES``
+     frames through ``build_predict_fn`` (the EPnP decode included) under a
+     profiler: the counters ``forward.conv_fused`` / ``forward.conv_plain``
+     read 37 and 255 (its 1x1 and other convs), the fused 1x1 kernel
+     launched 37 times and the depthwise one never; the keypoints against
+     the float32 reference on the card within the HRNet cell's limits
+     (``perfbench/limits/hrnet_w32_kp.kpstream_b64.json``), the widest gaps
+     printed; the forward's CUDA-event time; the 37 fused 1x1 calls of one
+     backbone forward on those frames recorded and each held against its
+     plain twin (``check_conv_bn``, phase 9's rule), with kernel, twin and
+     unfused ``ConvBnAct`` times and byte bounds, as a ``kernels`` row of
+     its own (``"path": "hrnet"``);
+ 19. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, where ``torch.cuda.is_available()`` is
 false or the package is missing.
@@ -357,6 +373,11 @@ FUSED_LAUNCHES = {"fused_stem": 1, "fused_mbconv": 17, "int8_matmul_requant": 1}
 # ConvBnAct but the stem); the two-pass crop-refine runs two.
 FLOAT_LAUNCHES = {"bf16_conv1x1_bn": 34, "bf16_depthwise3x3_bn": 17}
 CROP_REFINE_LAUNCHES = {name: 2 * n for name, n in FLOAT_LAUNCHES.items()}
+# An eval forward of HRNet-W32 on the card: its 37 1x1 ConvBnAct on the fused
+# kernel, its 255 others (the dense 3x3s) unfused.
+HRNET_LAUNCHES = {"bf16_conv1x1_bn": 37}
+HRNET_CONVS = {"forward.conv_fused": 37, "forward.conv_plain": 255}
+HRNET_FRAMES = 16
 
 
 def log(msg: str) -> None:
@@ -1279,16 +1300,24 @@ def phase_kernels(torch, dev, frames, launches, built_graph):
 
 
 def _float_calls(torch, dev, frames):
-    """One eval forward of the float flagship on ``frames`` with the fused
-    conv kernels' wrappers replaced by recorders: {kernel: [(args, kw,
-    module, x, residual), ...]}, each call's operands on the card beside the
-    ``ConvBnAct`` that made it and that module's input."""
-    from spef_tpu_torch.models import layers
+    """The fused conv kernels' calls of one eval forward of the float
+    flagship on ``frames`` (``_conv_calls``)."""
     from spef_tpu_torch.models.wrapper import import_model
 
     model = import_model(params_path=os.path.join(FLAGSHIP, "model", "parameters.msgpack"),
                          ori_mode="classification", n_ori_bins=1232, pos_mode="classification",
                          n_pos_bins=1000, device=dev)
+    return _conv_calls(torch, model,
+                       torch.from_numpy(frames).to(dev).float() / torch.tensor(255.0, device=dev))
+
+
+def _conv_calls(torch, model, x):
+    """One eval forward of ``model`` on ``x`` with the fused conv kernels'
+    wrappers replaced by recorders: {kernel: [(args, kw, module, x,
+    residual), ...]}, each call's operands on the card beside the
+    ``ConvBnAct`` that made it and that module's input."""
+    from spef_tpu_torch.models import layers
+
     calls = {name: [] for name in FLOAT_KERNELS}
     callers = []
     forward_kernel = layers.ConvBnAct._forward_kernel
@@ -1312,7 +1341,7 @@ def _float_calls(torch, dev, frames):
         for name, fn in saved.items():
             setattr(layers, name, recorder(name, fn))
         with torch.no_grad():
-            model(torch.from_numpy(frames).to(dev).float() / torch.tensor(255.0, device=dev))
+            model(x)
         torch.cuda.synchronize()
     finally:
         layers.ConvBnAct._forward_kernel = forward_kernel
@@ -1323,19 +1352,29 @@ def _float_calls(torch, dev, frames):
 
 def _float_kernel_rows(torch, dev, frames, launches):
     """The fused float convs at the float flagship's own inputs (one
-    batch-256 eval forward): each call held against its plain twin
-    (``check_conv_bn``), kernel / twin / library time (CUDA events) and its
-    bound; the library is the ``ConvBnAct`` unfused (the bf16 cuDNN conv,
-    ``.float()``, float32 BatchNorm, ``.to(bf16)``, the ReLU and the
-    residual add, as before the kernels).  Returns the two rows of the
-    ``kernels`` line."""
+    batch-256 eval forward): ``_conv_kernel_rows`` of its calls.  Returns
+    the two rows of the ``kernels`` line."""
+    return _conv_kernel_rows(torch, _float_calls(torch, dev, frames), FLOAT_LAUNCHES, launches,
+                             "the float path", f"a batch-{BATCH} forward")
+
+
+def _conv_kernel_rows(torch, calls, per_forward, launches, path, forward, extra=None):
+    """Each recorded fused conv call (``_conv_calls``) held against its
+    plain twin (``check_conv_bn``), kernel / twin / library time (CUDA
+    events) and its bound; the library is the ``ConvBnAct`` unfused (the
+    bf16 cuDNN conv, ``.float()``, float32 BatchNorm, ``.to(bf16)``, the
+    ReLU and the residual add, as before the kernels).  Each kernel must
+    have ``per_forward`` calls; ``launches`` are its counted launches on the
+    path and ``extra`` further keys of its row.  Returns a ``kernels`` row
+    for each kernel called."""
     from spef_tpu_torch.ops import bf16_conv_bn
 
-    calls = _float_calls(torch, dev, frames)
     bounds = {"bf16_conv1x1_bn": conv1x1_bn_bound, "bf16_depthwise3x3_bn": dw_bn_bound}
     rows = []
     for name, recs in calls.items():
-        assert len(recs) == FLOAT_LAUNCHES[name], (name, len(recs))
+        assert len(recs) == per_forward.get(name, 0), (name, len(recs))
+        if not recs:
+            continue
         kernel, plain = getattr(bf16_conv_bn, name), getattr(bf16_conv_bn, name + "_plain")
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
         mismatches, max_err, outputs = 0, 0.0, 0
@@ -1354,7 +1393,7 @@ def _float_kernel_rows(torch, dev, frames, launches):
             p_ms = time_ms(lambda: plain(*args, **kw), reps=2)
             l_ms = time_ms(library, reps=10)
             b_ms, by = bounds[name](args, kw)
-            log(f"[kernels] {name} call {i}: in {tuple(args[0].shape)}, out channels "
+            log(f"[kernels] {name} on {path}, call {i}: in {tuple(args[0].shape)}, out channels "
                 f"{module.conv.out_channels}, stride {module.conv.stride[0]}"
                 f"{', residual' if residual is not None else ''}, {mis} mismatches (max |d| "
                 f"{err:g}), kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, library {l_ms:.4f} ms, "
@@ -1365,15 +1404,15 @@ def _float_kernel_rows(torch, dev, frames, launches):
             tot["library_ms"] += l_ms
             tot["bytes_ms" if by == "bytes" else "ops_ms"] += b_ms
         bound_ms = tot["bytes_ms"] + tot["ops_ms"]
-        log(f"[kernels] {name} on the float path: {len(recs)} calls a forward, {mismatches} "
+        log(f"[kernels] {name} on {path}: {len(recs)} calls a forward, {mismatches} "
             f"mismatches ({mismatches / outputs:.2e} of the outputs), kernel {tot['ms']:.3f} ms, "
             f"plain {tot['plain_ms']:.3f} ms, library (ConvBnAct unfused) "
-            f"{tot['library_ms']:.3f} ms, bound {bound_ms:.3f} ms a batch-{BATCH} forward "
+            f"{tot['library_ms']:.3f} ms, bound {bound_ms:.3f} ms {forward} "
             f"({tot['ms'] / bound_ms:.1f}x the bound)")
         rows.append({
-            "name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],
-            "max_abs_err": max_err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": bound_ms,
+            "name": name, "route": "cuda", **KERNELS[name], **(extra or {}),
+            "launches": launches[name], "max_abs_err": max_err, "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": bound_ms,
             "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
             "library_ms": tot["library_ms"],
             "library": "ConvBnAct unfused: bf16 cuDNN conv + f32 BatchNorm, casts, ReLU",
@@ -4112,6 +4151,77 @@ def phase_sharded(torch, np, frames, card):
     return launches, checks
 
 
+def phase_hrnet(torch, np, dev):
+    """Phase 18: one HRNet-W32 predict at 480x768 against the plain
+    reference, its counters and launches, and its fused 1x1 calls against
+    their plain twins.  Returns the ``kernels`` line's HRNet rows."""
+    from perfbench import frames as bench_frames
+    from perfbench.reference import hrnet as ref
+    from spef_tpu_torch.codec.facade import SPEUtils
+    from spef_tpu_torch.data.camera import Camera
+    from spef_tpu_torch.engine import build_predict_fn
+    from spef_tpu_torch.models.wrapper import import_model
+    from spef_tpu_torch.utils import profiling
+
+    def load(path):
+        with open(os.path.join(REPO, path)) as f:
+            return json.load(f)
+
+    cfg = load("perfbench/configs/hrnet_w32_kp.json")
+    mix = load("perfbench/traffic/kpstream_b64.json")
+    limits = load("perfbench/limits/hrnet_w32_kp.kpstream_b64.json")
+    h, w = cfg["img_size"]
+    model = import_model("hrnet_w32", "hrnet_heatmap", ori_mode="keypoints", pos_mode="keypoints",
+                         img_size=(h, w), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    calib, _, _ = bench_frames.make_frames(gen, cfg["calibration_frames"], cfg["camera"], (h, w),
+                                           mix["frames"])
+    leaves = {k: v.to(dev) for k, v in ref.init_leaves(cfg, 18).items()}
+    leaves = ref.calibrate(leaves, calib.float() / 255, cfg)
+    ref.load(model, leaves)
+    del calib
+    images, _, _ = bench_frames.make_frames(gen, HRNET_FRAMES, cfg["camera"], (h, w),
+                                            mix["frames"])
+    predict = build_predict_fn(model, SPEUtils.create(
+        Camera(**cfg["camera"]), ori_mode="keypoints", pos_mode="keypoints", device=dev))
+    predict(images)  # warm-up
+    torch.cuda.synchronize(dev)
+    _reset_counters()
+    profiling.reset_counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        pose = predict(images)
+        torch.cuda.synchronize(dev)
+    convs = profiling.counters()
+    log(f"[hrnet] counters a forward {convs}")
+    assert {k: convs.get(k, 0) for k in HRNET_CONVS} == HRNET_CONVS, convs
+    launches = _read_counters("hrnet", 1, HRNET_LAUNCHES)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        predict.launch(images)
+    end.record()
+    torch.cuda.synchronize(dev)
+    with torch.no_grad(), ref.exact_f32():
+        logits = ref.forward(leaves, images.float() / 255, cfg)[1].double()
+    kp = pose["keypoints"].double()
+    scale = torch.tensor([float(w), float(h)], device=dev, dtype=torch.float64).repeat(
+        kp.shape[1] // 2)
+    gaps = {"kp_px": float(((kp - torch.sigmoid(logits)).abs() * scale).max()),
+            "kp_logit": float((torch.log(kp / (1 - kp)) - logits).abs().max())}
+    log(f"[hrnet] {HRNET_FRAMES} frames at {h}x{w}: forward {start.elapsed_time(end) / 3:.2f} ms; "
+        f"against the float32 reference {gaps}, the cell's limits {limits}; poses "
+        f"{tuple(pose['ori'].shape)} {tuple(pose['pos'].shape)}")
+    assert all(gaps[k] <= lim for k, lim in limits.items()), (gaps, limits)
+    del leaves, logits, pose
+    # F1 at HRNet's shapes (K 256 / N 64 over 23,040 rows a frame, the
+    # residual 64 -> 256 with no ReLU, the exchanges' small-M 1x1s): each
+    # call of one forward on these frames held against its plain twin.
+    x = images.float() / torch.tensor(255.0, device=dev)
+    return _conv_kernel_rows(torch, _conv_calls(torch, model.backbone, x), HRNET_LAUNCHES,
+                             launches, "the HRNet path", f"a {HRNET_FRAMES}-frame forward",
+                             {"path": "hrnet"})
+
+
 def main() -> int:
     import torch
 
@@ -4177,6 +4287,7 @@ def main() -> int:
     finally:
         shutil.rmtree(train_root, ignore_errors=True)
     sharded_launches, sharded_checks = phase_sharded(torch, np, frames, card)
+    hrnet_rows = phase_hrnet(torch, np, dev)
     for row in rows:
         if row["name"] == "int8_matmul_requant":
             row["launches_fused_path"] = fused_launches["int8_matmul_requant"]
@@ -4235,6 +4346,8 @@ def main() -> int:
             # through carry and layer (phase_deploy_build)
             row["launches_build_path"] = {
                 name: counts[row["name"]] for name, counts in build_launches.items()}
+    # F1's calls on the HRNet path, a row of their own (phase 18)
+    rows += hrnet_rows
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -238,6 +238,13 @@ class ShardedPredict:
         still be queued on the devices)."""
         return self.finish(self.launch(shards))
 
+    def staged(self) -> StagedPredict:
+        """This predict function in two stages on a whole batch, as
+        ``serving.serve_stream`` serves a stream over the mesh: ``launch``
+        scatters the rows and queues every device's forward, ``finish``
+        decodes the gathered batch on the first device."""
+        return StagedPredict(lambda images: self.launch(self.scatter(images)), self.finish)
+
     @staticmethod
     def gather(parts: Sequence[Pose], device: torch.device) -> Pose:
         """The parts as one pose of the whole batch on ``device``."""

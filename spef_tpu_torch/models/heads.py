@@ -30,8 +30,9 @@ from torch import nn
 
 from spef_tpu_torch.codec.epnp import exact_f32
 from spef_tpu_torch.models.layers import BatchNorm, Dropout
+from spef_tpu_torch.utils import profiling
 
-__all__ = ["URSONetHead", "KeypointRegressionHead", "KeypointHeatmapHead"]
+__all__ = ["URSONetHead", "KeypointRegressionHead", "KeypointHeatmapHead", "HRNetHeatmapHead"]
 
 
 def _dense_init_(fc: nn.Linear, generator: Optional[torch.Generator]) -> None:
@@ -47,6 +48,24 @@ def _lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator]) -> Non
     fan_in = w.shape[1] * w.shape[2] * w.shape[3]
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+def soft_argmax_logits(heatmaps: torch.Tensor, temperature: float = 1.0) -> torch.Tensor:
+    """(B, K, H, W) float32 heatmaps -> (B, 2K) logits of the expected
+    normalized (x, y) of each over pixel-centre grids, after a spatial
+    softmax (the span ``spef.heatmap.softargmax``)."""
+    with profiling.span("heatmap.softargmax"):
+        b, k, h, w = heatmaps.shape
+        p = torch.softmax(heatmaps.reshape(b, k, h * w) / temperature, dim=-1)
+        p = p.reshape(b, k, h, w)
+        ys = (torch.arange(h, dtype=torch.float32, device=heatmaps.device) + 0.5) / h
+        xs = (torch.arange(w, dtype=torch.float32, device=heatmaps.device) + 0.5) / w
+        ex = torch.einsum("bkhw,w->bk", p, xs)
+        ey = torch.einsum("bkhw,h->bk", p, ys)
+        coords = torch.stack([ex, ey], dim=-1).reshape(b, 2 * k)
+        eps = 1e-6
+        coords = torch.clamp(coords, eps, 1.0 - eps)
+        return torch.log(coords / (1.0 - coords))
 
 
 class URSONetHead(nn.Module):
@@ -130,15 +149,24 @@ class KeypointHeatmapHead(nn.Module):
         x = self._conv_bn_relu(x, "squeeze")
         for i in range(self.upsample):
             x = self._conv_bn_relu(F.interpolate(x, scale_factor=2, mode="nearest"), f"up{i}")
-        logits = self.heatmap_conv(x.float())  # (B, K, H, W)
-        b, k, h, w = logits.shape
-        p = torch.softmax(logits.reshape(b, k, h * w) / self.temperature, dim=-1)
-        p = p.reshape(b, k, h, w)
-        ys = (torch.arange(h, dtype=torch.float32, device=x.device) + 0.5) / h
-        xs = (torch.arange(w, dtype=torch.float32, device=x.device) + 0.5) / w
-        ex = torch.einsum("bkhw,w->bk", p, xs)
-        ey = torch.einsum("bkhw,h->bk", p, ys)
-        coords = torch.stack([ex, ey], dim=-1).reshape(b, self.n_outputs)
-        eps = 1e-6
-        coords = torch.clamp(coords, eps, 1.0 - eps)
-        return torch.log(coords / (1.0 - coords))
+        return soft_argmax_logits(self.heatmap_conv(x.float()), self.temperature)
+
+
+class HRNetHeatmapHead(nn.Module):
+    """HRNet's 1x1 final layer (with bias, float32) to one heatmap a
+    keypoint over the backbone's 1/4-resolution NHWC map, then the
+    soft-argmax logits of :class:`KeypointHeatmapHead`."""
+
+    def __init__(self, in_features: int = 32, n_outputs: int = 24,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if n_outputs % 2:
+            raise ValueError(f"n_outputs must be even, got {n_outputs}")
+        self.final_layer = nn.Conv2d(in_features, n_outputs // 2, 1, bias=True)
+        _lecun_normal_(self.final_layer.weight, generator)
+        nn.init.zeros_(self.final_layer.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        exact_f32()  # the heatmap conv and the expectations in true float32
+        heatmaps = self.final_layer(x.permute(0, 3, 1, 2).float())  # (B, K, H, W)
+        return soft_argmax_logits(heatmaps)

@@ -29,8 +29,9 @@ import torch
 from torch import nn
 
 from spef_tpu_torch.models.flax_msgpack import read_flax_msgpack, write_flax_msgpack
-from spef_tpu_torch.models.heads import (KeypointHeatmapHead, KeypointRegressionHead,
-                                         URSONetHead)
+from spef_tpu_torch.models.heads import (HRNetHeatmapHead, KeypointHeatmapHead,
+                                         KeypointRegressionHead, URSONetHead)
+from spef_tpu_torch.models.hrnet import HRNetW32
 from spef_tpu_torch.models.mobilenet_v2 import MobileNetV2, SmallBackbone, SmallMobile
 
 __all__ = ["ModelWrapper", "import_model", "save_model", "load_flax_variables",
@@ -170,10 +171,13 @@ def import_model(
     (``mobilenet_v2_q``, ``small_mobile_q``, ``small_q`` + ``ursonet_q``,
     float32, fake-quantized by ``bit_width`` when ``quantization``),
     selected by the ``_q`` suffix as in the JAX factory.
+    ``hrnet_w32`` (HRNet-W32, ``models.hrnet``, in ``compute_dtype``; with
+    BatchNorm and residuals only) takes the ``hrnet_heatmap`` keypoint head.
     ``pretrained_path`` warm-starts the backbone from a torchvision-format
     MobileNetV2 file on disk (``models.pretrained``), before
     ``params_path`` is loaded.  ``ori_mode="keypoints"`` takes a keypoint
-    head: ``keypoints_heatmap``, or the regression head for any other name
+    head: ``keypoints_heatmap``, ``hrnet_heatmap`` (HRNet's 1x1 final layer),
+    or the regression head for any other name
     (``keypoints_regression``), with ``n_keypoint_outputs`` outputs; the
     regression head's input size is the feature map's at ``img_size``.
     """
@@ -187,12 +191,19 @@ def import_model(
     elif backbone_name in _BACKBONES:
         backbone = _BACKBONES[backbone_name](batchnorm=batchnorm, residual=residual,
                                              compute_dtype=compute_dtype, generator=gen)
+    elif backbone_name == "hrnet_w32":
+        if not (batchnorm and residual):
+            raise ValueError("HRNet-W32 is built with its BatchNorms and residual adds")
+        backbone = HRNetW32(compute_dtype=compute_dtype, generator=gen)
     else:
         raise ValueError(f"Backbone {backbone_name} does not exist")
     if ori_mode == "keypoints":
         if head_name == "keypoints_heatmap":
             head = KeypointHeatmapHead(backbone.out_features, n_outputs=n_keypoint_outputs,
                                        compute_dtype=compute_dtype, generator=gen)
+        elif head_name == "hrnet_heatmap":
+            head = HRNetHeatmapHead(backbone.out_features, n_outputs=n_keypoint_outputs,
+                                    generator=gen)
         else:
             with torch.no_grad():  # the flattened feature map's size at img_size
                 feat = backbone(torch.zeros((1, *img_size, 3)))

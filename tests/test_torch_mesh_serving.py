@@ -54,7 +54,7 @@ from spef_tpu_torch.engine import (SPECropRefine, SPETorch, ShardedPredict, Stag
                                    _replica, build_predict_fn)
 from spef_tpu_torch.models.wrapper import flax_variables, import_model
 from spef_tpu_torch.parallel.mesh import data_sharding, make_local_mesh
-from spef_tpu_torch.serving import PoseServer
+from spef_tpu_torch.serving import PoseServer, serve_stream
 
 torch.set_num_threads(1)
 
@@ -275,6 +275,30 @@ def test_every_device_is_launched_before_any_is_finished(ursonet):
     assert order == [("launch", i) for i in range(4)] + [("finish", 0)]
     want = build_predict_fn(model, utils)(images)
     _assert_pose({k: v.numpy() for k, v in got.items()}, {k: v.numpy() for k, v in want.items()})
+
+
+def test_a_stream_is_served_over_the_mesh_in_two_stages(ursonet):
+    """``ShardedPredict.staged()`` under ``serve_stream``: each window's
+    rows scattered and every replica launched before the one decode, and
+    each window's pose the one-device predict function's."""
+    model, utils, _, _ = ursonet
+    order = []
+
+    def build(device):
+        predict = _replica_predict(model, utils)(device)
+        return StagedPredict(lambda x: order.append("launch") or predict.launch(x),
+                             lambda p: order.append("finish") or predict.finish(p))
+
+    staged = ShardedPredict.build(make_local_mesh("cpu", 4), build).staged()
+    assert isinstance(staged, StagedPredict)
+    windows = [_frames(8, seed) for seed in range(3)]
+    got = list(serve_stream(staged, windows, depth=2, device="cpu"))
+    assert order == (["launch"] * 4 + ["finish"]) * 3
+    one = build_predict_fn(model, utils)
+    for pose, window in zip(got, windows):
+        want = one(torch.from_numpy(window))
+        _assert_pose({k: v.numpy() for k, v in pose.items()},
+                     {k: v.numpy() for k, v in want.items()})
 
 
 @pytest.mark.parametrize("on_mesh", [False, True])
